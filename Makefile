@@ -1,17 +1,8 @@
 # Developer entry points.
-.PHONY: test native bench profile perf-artifacts schemas audit clean
-
-# Regenerate every committed docs/perf artifact from the scripts that own
-# them, ON THE CURRENT MACHINE (run on the real TPU for the numbers the
-# round docs cite).  Each script writes its own JSON under docs/perf/ —
-# a ROUNDn.md claim of "regenerated" must correspond to a git change of
-# the matching file from this target (VERDICT r4 #2: claims-vs-artifacts
-# drift happened twice; this makes regeneration one command).
-perf-artifacts:
-	python scripts/run_all_perf.py
+.PHONY: test native bench smoke profile schemas audit clean
 
 test:
-	python -m pytest tests -q
+	JAX_PLATFORMS=cpu python -m pytest tests -q -m 'not slow'
 
 native:
 	$(MAKE) -C native
@@ -19,16 +10,19 @@ native:
 bench:
 	python bench.py
 
+smoke:
+	python chip_smoke.py
+
 profile:
 	python scripts/profile_index.py --clustered
 	python scripts/profile_signals.py
 
 schemas:
-	python -m dewi_tpu.schemas
+	python -m dewi.schemas
 
 audit:
 	python scripts/gatekeeper_audit.py
 
 clean:
 	$(MAKE) -C native clean
-	rm -rf .pytest_cache dewi_tpu/__pycache__
+	rm -rf .pytest_cache dewi/__pycache__

@@ -2,13 +2,12 @@
 """Columnar (array-native) pipeline at corpus scale, with resume.
 
 The quickstart moves per-``Document`` objects; at 1M docs that Python
-overhead costs ~10x the device time (docs/perf/e2e_pipeline.json).  This
-example runs the production path instead: a columnar :class:`Corpus`
+overhead can outweigh the device time.  This example runs the production path instead: a columnar :class:`Corpus`
 streamed shard-by-shard through signals -> one global fused fit+score ->
 a two-array index handoff — no per-doc Python in any hot loop — plus
 shard checkpoints that make a second run resume instead of recompute.
 
-Hermetic (tiny models, synthetic text), runs on CPU or TPU:
+Hermetic (tiny models, synthetic text), runs on CPU or GPU:
 
     python examples/columnar_pipeline.py
 """
@@ -20,8 +19,8 @@ from pathlib import Path
 
 import numpy as np
 
-from dewi_tpu import DewiConfig, DewiPipeline
-from dewi_tpu.corpus import COL, Corpus
+from dewi import DewiConfig, DewiPipeline
+from dewi.corpus import COL, Corpus
 
 N_DOCS = int(os.environ.get("DEWI_EXAMPLE_DOCS", 2_000))
 WORDS = ("entropy signal index corpus robust weight noise surprise "

@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""DEWI-TPU index-tier ladder: exact -> bf16 -> int8 -> int4, one corpus.
+"""DEWI index-tier ladder: exact -> bf16 -> int8 -> int4, one corpus.
 
 Shows the latency/recall trade the backends expose and verifies every
 tier against the exact ranking (the int tiers' two-stage refine keeps
 recall >= 0.99 at a fraction of the stage-1 HBM read — int8 reads 1/4
 of f32's bytes, int4 1/8).  Hermetic: synthetic embeddings, runs on CPU
-or TPU:
+or GPU:
 
     python examples/index_tiers.py
 
@@ -20,8 +20,8 @@ import time
 
 import numpy as np
 
-from dewi_tpu import DewiIndex
-from dewi_tpu.metrics import recall_matrix
+from dewi import DewiIndex
+from dewi.metrics import recall_matrix
 
 N = int(os.environ.get("DEWI_EXAMPLE_DOCS", 4096))
 D, K, NQ = 128, 10, 32

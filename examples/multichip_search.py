@@ -5,12 +5,12 @@ Shards a corpus over the mesh's data axis and runs the two production
 search tiers — exact (bf16/f32 scan) and quantized (int8 two-stage with
 f32 refinement) — as ONE ``shard_map`` program each: every chip scans its
 shard, the per-shard top-k (``O(devices * k)`` rows, never the corpus)
-all-gathers over ICI, and the global merge runs replicated.  Results are
+all-gathers over the interconnect, and the global merge runs replicated.  Results are
 asserted identical to a single-device search over the same rows.
 
-On real multi-chip hardware this runs as-is on the TPU mesh.  Without one
-(e.g. this dev box's single chip) it demonstrates the same compiled
-program on 8 virtual CPU devices:
+On a multi-GPU host this runs as-is on the device mesh.  Without one (a
+single card, or none) it demonstrates the same compiled program on 8
+virtual CPU devices:
 
     python examples/multichip_search.py
 """
@@ -22,7 +22,7 @@ import numpy as np
 
 
 def ensure_devices() -> None:
-    """Use the real TPU mesh when >=2 chips exist, else 8 virtual CPUs."""
+    """Use the real device mesh when >=2 chips exist, else 8 virtual CPUs."""
     import jax
 
     if os.environ.get("_DEWI_VIRTUAL_MESH") == "1":
@@ -54,9 +54,9 @@ def main() -> None:
     ensure_devices()
     import jax
 
-    from dewi_tpu.index import ExactIndex, QuantizedIndex
-    from dewi_tpu.index.store import DocStore
-    from dewi_tpu.parallel import (
+    from dewi.index import ExactIndex, QuantizedIndex
+    from dewi.index.store import DocStore
+    from dewi.parallel import (
         ShardedExactSearcher,
         ShardedQuantizedSearcher,
         make_mesh,

@@ -1,16 +1,16 @@
 #!/usr/bin/env python
-"""DEWI-TPU quickstart: signals -> scores -> index -> entropy-aware search.
+"""DEWI quickstart: signals -> scores -> index -> entropy-aware search.
 
-Hermetic end-to-end demo on tiny models (no downloads, runs on CPU or TPU):
+Hermetic end-to-end demo on tiny models (no downloads, runs on CPU or GPU):
 
     python examples/quickstart.py
 """
 
 import numpy as np
 
-from dewi_tpu import DewiConfig, DewiPipeline, create_document
-from dewi_tpu.eval import evaluate_index
-from dewi_tpu.sampling import sample_by_dewi
+from dewi import DewiConfig, DewiPipeline, create_document
+from dewi.eval import evaluate_index
+from dewi.sampling import sample_by_dewi
 
 CORPUS = [
     "The aurora borealis is caused by charged solar particles striking the "

@@ -1,6 +1,6 @@
-// DEWI-TPU native runtime: GIL-free JPEG decode pool.
+// DEWI native runtime: GIL-free JPEG decode pool.
 //
-// The Python ingest path (dewi_tpu/io/images.py) decodes with PIL, whose C
+// The Python ingest path (dewi/io/images.py) decodes with PIL, whose C
 // core releases the GIL — but the surrounding Python (open/draft/convert/
 // asarray) still serializes on it, so thread scaling tops out well below
 // core count on hot ingest.  This pool does the whole batch in C++:

@@ -1,6 +1,6 @@
-// DEWI-TPU native runtime: high-throughput host-side codecs.
+// DEWI native runtime: high-throughput host-side codecs.
 //
-// The TPU owns all numeric compute (JAX/XLA); this library owns the
+// The accelerator owns all numeric compute (JAX/XLA); this library owns the
 // host-side hot paths around it — the reference delegated those to
 // third-party C++ wheels (hnswlib/faiss serde, reference backends.py:104-163,
 // 358-383), which this framework replaces in-repo.

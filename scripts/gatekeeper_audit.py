@@ -13,14 +13,14 @@ ROOT = Path(__file__).resolve().parent.parent
 
 
 def collect_evidence() -> dict:
-    src = sorted((ROOT / "dewi_tpu").rglob("*.py"))
+    src = sorted((ROOT / "dewi").rglob("*.py"))
     tests = sorted((ROOT / "tests").glob("test_*.py"))
     return {
         "python_files": len(src),
         "test_files": len(tests),
-        "has_cli": (ROOT / "dewi_tpu" / "cli.py").exists(),
+        "has_cli": (ROOT / "dewi" / "cli.py").exists(),
         "has_bench": (ROOT / "bench.py").exists(),
-        "has_schemas": (ROOT / "dewi_tpu" / "schemas.py").exists(),
+        "has_schemas": (ROOT / "dewi" / "schemas.py").exists(),
     }
 
 

@@ -7,7 +7,7 @@ n_queries=1000, k=10; seeded gamma/beta synthetic payload distributions
 (profile_index.py:34-72); emits a ``metrics.json`` with docs/sec, QPS and
 latency stats (profile_index.py:288-291).
 
-TPU-native measurement replaces cProfile: wall-clock timings around
+Device-side measurement replaces cProfile: wall-clock timings around
 ``jax.block_until_ready`` plus optional ``jax.profiler`` XLA traces
 (``--trace-dir`` -> TensorBoard-compatible trace instead of .prof dumps).
 
@@ -82,11 +82,11 @@ def main() -> int:
 
     import jax
 
-    from dewi_tpu.utils.platform import apply_platform_override
+    from dewi.utils.platform import apply_platform_override
 
     apply_platform_override()
 
-    from dewi_tpu.index import DewiIndex
+    from dewi.index import DewiIndex
 
     print(f"Device: {jax.devices()[0]}")
     print(f"Generating {args.n_docs} docs (dim={args.dim})...")
@@ -165,7 +165,7 @@ def main() -> int:
         "device": str(jax.devices()[0]),
     }
     if args.backend in ("ivf", "quantized"):
-        from dewi_tpu.metrics import recall_matrix
+        from dewi.metrics import recall_matrix
 
         exact = DewiIndex(dim=args.dim, backend="exact")
         exact.add_batch(doc_ids, emb, pay)
@@ -179,6 +179,7 @@ def main() -> int:
             recall_matrix(np.asarray(ivf_idx), np.asarray(ex_idx)), 4
         )
 
+    Path(args.output).parent.mkdir(parents=True, exist_ok=True)
     Path(args.output).write_text(json.dumps(metrics, indent=2))
     print(json.dumps(metrics, indent=2))
     return 0

@@ -8,7 +8,7 @@ cluster imbalance can overflow buckets and nprobe actually gates recall.
 
 Ground truth is the fused exact search on the same store.  Reports cold
 and warm build seconds, recall@10 at the default dials, and a small nprobe
-sweep.  Writes one JSON (default docs/perf/ivf_clustered_1m.json).
+sweep.  Writes one JSON (default perf_out/ivf_clustered_1m.json).
 
 Usage:
   python scripts/profile_ivf_1m.py --n-docs 1000000 --modes 512
@@ -37,22 +37,22 @@ def main() -> int:
     ap.add_argument("--nprobe", type=int, default=32)
     ap.add_argument("--n-queries", type=int, default=1000)
     ap.add_argument("--k", type=int, default=10)
-    ap.add_argument("--output", default="docs/perf/ivf_clustered_1m.json")
+    ap.add_argument("--output", default="perf_out/ivf_clustered_1m.json")
     args = ap.parse_args()
 
     import jax
 
-    from dewi_tpu.utils.platform import apply_platform_override
+    from dewi.utils.platform import apply_platform_override
 
     apply_platform_override()
     import jax.numpy as jnp
-    from dewi_tpu.utils.compile_cache import enable_compilation_cache
+    from dewi.utils.compile_cache import enable_compilation_cache
 
     enable_compilation_cache()
 
-    from dewi_tpu.eval import recall_matrix
-    from dewi_tpu.index.exact import ExactIndex
-    from dewi_tpu.index.ivf import IVFIndex
+    from dewi.eval import recall_matrix
+    from dewi.index.exact import ExactIndex
+    from dewi.index.ivf import IVFIndex
 
     n, d, nc = args.n_docs, args.dim, args.modes
     print(f"Device: {jax.devices()[0]}", flush=True)
@@ -113,27 +113,15 @@ def main() -> int:
         metrics[f"recall_at_k{args.k}_nprobe{nprobe}"] = round(r, 4)
         print(f"nprobe={nprobe}: recall@{args.k} = {r:.4f}", flush=True)
 
-    # Batched latency at the default dials, A/B over probe layouts:
-    # scan (streams one probe rank) vs gather (materializes the full
-    # [Q, nprobe, cap, D] block), f32 vs bf16 bucket storage.
+    # Batched latency at the default dials, f32 vs bf16 bucket storage.
     def timed_ms_per_query():
         _ = blocked(ivf.search_batch)  # warm the (impl, shape) trace
         t0 = time.perf_counter()
         _ = blocked(ivf.search_batch)
         return round((time.perf_counter() - t0) / args.n_queries * 1e3, 4)
 
-    for impl in ("scan", "gather"):
-        ivf.probe_impl = impl
-        metrics[f"batched_ms_per_query_{impl}_f32"] = timed_ms_per_query()
-        print(f"{impl} f32: {metrics[f'batched_ms_per_query_{impl}_f32']} "
-              "ms/query", flush=True)
-    # Headline = what the default config (probe_impl="auto") dispatches
-    # on this platform: gather on TPU, scan on CPU (see index/ivf.py).
-    ivf.probe_impl = "auto"
-    resolved = ivf._resolved_probe_impl()
-    metrics["probe_impl_auto_resolved"] = resolved
-    metrics["batched_ms_per_query"] = metrics[
-        f"batched_ms_per_query_{resolved}_f32"]
+    metrics["batched_ms_per_query"] = timed_ms_per_query()
+    print(f"f32: {metrics['batched_ms_per_query']} ms/query", flush=True)
 
     # bf16 bucket tier: half the probe HBM traffic; recall measured against
     # the same exact ground truth.
@@ -147,12 +135,9 @@ def main() -> int:
         float(recall_matrix(got, gt)), 4
     )
     ivf = ivf_bf
-    for impl in ("scan", "gather"):
-        ivf.probe_impl = impl
-        metrics[f"batched_ms_per_query_{impl}_bf16"] = timed_ms_per_query()
-        print(f"{impl} bf16: "
-              f"{metrics[f'batched_ms_per_query_{impl}_bf16']} ms/query",
-              flush=True)
+    metrics["batched_ms_per_query_bf16"] = timed_ms_per_query()
+    print(f"bf16: {metrics['batched_ms_per_query_bf16']} ms/query",
+          flush=True)
     print(f"bf16 recall: {metrics[f'recall_at_k{args.k}_bf16']}", flush=True)
 
     Path(args.output).parent.mkdir(parents=True, exist_ok=True)

@@ -18,7 +18,7 @@ Rows (docs/sec over --n-docs docs of ~--words words):
   bpe_per_text    the per-text Python encode loop the adapter replaced
                   (measured on a subset; reported at full-corpus rate)
 
-Writes docs/perf/tokenize.json.  CPU-only (no TPU).
+Writes perf_out/tokenize.json.  CPU-only (no accelerator).
 """
 
 from __future__ import annotations
@@ -81,10 +81,10 @@ def main() -> int:
     ap.add_argument("--vocab-size", type=int, default=50_257)
     ap.add_argument("--max-len", type=int, default=256)
     ap.add_argument("--train-docs", type=int, default=4_000)
-    ap.add_argument("--output", default="docs/perf/tokenize.json")
+    ap.add_argument("--output", default="perf_out/tokenize.json")
     args = ap.parse_args()
 
-    from dewi_tpu.signals.tokenizer import ByteTokenizer, make_hf_adapter
+    from dewi.signals.tokenizer import ByteTokenizer, make_hf_adapter
 
     print(f"== synthesizing {args.n_docs} docs x ~{args.words} words")
     corpus = synth_corpus(args.n_docs, args.words)
@@ -172,7 +172,7 @@ def main() -> int:
         "byte tokenizer is this framework's faster default. Tokenize is "
         "embarrassingly parallel across docs: provision "
         "ceil(device_docs_per_sec / bpe_fast_batch_docs_per_sec) host "
-        "cores to keep a chip fed (~7 for the small-preset text LM)."
+        "cores to keep the card fed."
     )
     path = ROOT / args.output
     path.parent.mkdir(parents=True, exist_ok=True)

@@ -6,7 +6,7 @@ VERDICT r4 #7: the claim "Rust `encode_batch` scales across host cores"
 ONE core — the measurement can only come from a multi-core host.  This
 script is that measurement, runnable anywhere:
 
-    python scripts/profile_tokenize_scaling.py [-o docs/perf/tokenize_ci.json]
+    python scripts/profile_tokenize_scaling.py [-o perf_out/tokenize_ci.json]
 
 It times per-text encode vs `encode_batch_fast` (GIL released inside the
 Rust tokenizer, so the batch call parallelizes across cores) on the same
@@ -35,7 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("-o", "--out", default="docs/perf/tokenize_ci.json")
+    ap.add_argument("-o", "--out", default="perf_out/tokenize_ci.json")
     ap.add_argument("--n-docs", type=int, default=4096)
     ap.add_argument("--max-len", type=int, default=512)
     args = ap.parse_args()

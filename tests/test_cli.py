@@ -7,7 +7,7 @@ import numpy as np
 import pytest
 from click.testing import CliRunner
 
-from dewi_tpu.cli import cli, create_document
+from dewi.cli import cli, create_document
 
 
 @pytest.fixture
@@ -114,8 +114,8 @@ class TestSearch:
     def test_search_real_index_with_npy_query(self, runner, tmp_path,
                                               monkeypatch):
         monkeypatch.setenv("DEWI_TEST_MODE", "0")
-        from dewi_tpu import DewiIndex
-        from dewi_tpu.types import Payload
+        from dewi import DewiIndex
+        from dewi.types import Payload
 
         rng = np.random.default_rng(0)
         index = DewiIndex(dim=16)
@@ -195,7 +195,7 @@ class TestEndToEndRealMode:
         import jax
         import yaml
 
-        from dewi_tpu.models.registry import (
+        from dewi.models.registry import (
             clip_config, init_clip, save_params,
         )
 
@@ -243,9 +243,9 @@ class TestEndToEndRealMode:
 
         # CLI ranking must equal encoding the query with the checkpointed
         # pipeline directly (same encoder, same space).
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.index import DewiIndex
-        from dewi_tpu.pipelines import DewiPipeline
+        from dewi.config import DewiConfig
+        from dewi.index import DewiIndex
+        from dewi.pipelines import DewiPipeline
 
         pipe = DewiPipeline(DewiConfig.from_dict(cfg))
         index = DewiIndex.load(out / "index")
@@ -331,7 +331,7 @@ class TestRuntimeKnobs:
     def test_io_threads_reaches_loader(self, runner, tmp_path, monkeypatch):
         import yaml
 
-        import dewi_tpu.cli as climod
+        import dewi.cli as climod
 
         seen = {}
         orig = climod._load_documents
@@ -384,8 +384,8 @@ class TestRuntimeKnobs:
 class TestEvalCommand:
     def test_eval_real_index(self, runner, tmp_path, monkeypatch):
         monkeypatch.setenv("DEWI_TEST_MODE", "0")
-        from dewi_tpu import DewiIndex
-        from dewi_tpu.types import Payload
+        from dewi import DewiIndex
+        from dewi.types import Payload
 
         rng = np.random.default_rng(0)
         emb = rng.normal(size=(20, 16)).astype(np.float32)

@@ -11,7 +11,7 @@ import pytest
 
 class TestBackendsShim:
     def test_reference_imports(self):
-        from dewi_tpu.backends import (
+        from dewi.backends import (
             _HAS_FAISS,
             _HAS_HNSW,
             BaseIndex,
@@ -26,8 +26,8 @@ class TestBackendsShim:
         assert issubclass(FAISSIndex, BaseIndex)
 
     def test_hnsw_alias_searches(self, rng, dummy_embeddings, dummy_payloads):
-        from dewi_tpu.backends import HNSWIndex
-        from dewi_tpu.types import payloads_to_matrix
+        from dewi.backends import HNSWIndex
+        from dewi.types import payloads_to_matrix
 
         idx = HNSWIndex(dim=32)
         idx.add_batch([str(i) for i in range(64)], dummy_embeddings,
@@ -37,13 +37,13 @@ class TestBackendsShim:
         assert len(res) == 3
 
     def test_faiss_alias_is_ivf(self):
-        from dewi_tpu.backends import FAISSIndex
-        from dewi_tpu.index.ivf import IVFIndex
+        from dewi.backends import FAISSIndex
+        from dewi.index.ivf import IVFIndex
 
         assert FAISSIndex is IVFIndex
 
     def test_backend_enum_from_str(self):
-        from dewi_tpu.backends import IndexBackend
+        from dewi.backends import IndexBackend
 
         assert IndexBackend.from_str("auto") is IndexBackend.EXACT
         assert IndexBackend.from_str("faiss_ivfflat") is IndexBackend.FAISS_IVFFLAT
@@ -51,7 +51,7 @@ class TestBackendsShim:
 
 class TestRobustShim:
     def test_payload_fit_surface(self, dummy_payloads):
-        from dewi_tpu.robust import PAYLOAD_STAT_FIELDS, RobustStats
+        from dewi.robust import PAYLOAD_STAT_FIELDS, RobustStats
 
         stats = RobustStats.from_payloads(dummy_payloads)
         assert set(stats.keys) == set(PAYLOAD_STAT_FIELDS)
@@ -59,7 +59,7 @@ class TestRobustShim:
         assert np.isfinite(z)
 
     def test_robust_standardize_helper(self):
-        from dewi_tpu.robust import _robust_standardize
+        from dewi.robust import _robust_standardize
 
         # Additive-epsilon variant (reference robust.py:8-10).
         z = _robust_standardize(2.0, 1.0, 0.5)
@@ -69,7 +69,7 @@ class TestRobustShim:
 
 class TestLocalWeightsShim:
     def test_import_and_shape(self, rng):
-        from dewi_tpu.local_weights import local_weights_from_surprisal
+        from dewi.local_weights import local_weights_from_surprisal
 
         s = rng.gamma(2.0, 1.0, size=50).astype(np.float32)
         w = local_weights_from_surprisal(s)

@@ -2,7 +2,7 @@
 
 import pytest
 
-from dewi_tpu.config import (
+from dewi.config import (
     DewiConfig,
     PRESETS,
     apply_preset,
@@ -58,17 +58,19 @@ def test_partial_dict_uses_defaults():
 
 
 def test_ivf_probe_dials_reach_backend():
-    """index.probe_dtype/probe_impl flow from config to the IVF backend."""
-    from dewi_tpu.pipelines import DewiPipeline
+    """index.probe_dtype flows from config to the IVF backend; a config
+    that still names the retired probe_impl switch loads (unknown keys
+    are filtered)."""
+    from dewi.pipelines import DewiPipeline
 
     cfg = DewiConfig.from_dict(
         {"index": {"ann": "ivf", "probe_dtype": "bfloat16",
                    "probe_impl": "gather", "nlist": 8, "nprobe": 2}}
     )
     assert cfg.index.probe_dtype == "bfloat16"
+    assert not hasattr(cfg.index, "probe_impl")
     ix = DewiPipeline(cfg)._make_index(dim=16)
     assert ix._backend.probe_dtype == "bfloat16"
-    assert ix._backend.probe_impl == "gather"
 
     # "auto" (the default) passes through; it resolves to the store's
     # embedding dtype at build time (see tests/test_ivf_probe.py).
@@ -114,15 +116,15 @@ def test_nested_weights_from_dict():
 
 def test_lazy_package_root():
     """Package root resolves exports lazily (reference README.md:16 lazy
-    loading) — importing dewi_tpu must not import any submodule."""
+    loading) — importing dewi must not import any submodule."""
     import subprocess
     import sys
 
     code = (
-        "import sys; import dewi_tpu; "
-        "eager = [m for m in sys.modules if m.startswith('dewi_tpu.')]; "
+        "import sys; import dewi; "
+        "eager = [m for m in sys.modules if m.startswith('dewi.')]; "
         "assert not eager, eager; "
-        "from dewi_tpu import Payload; "
+        "from dewi import Payload; "
         "assert Payload().dewi == 0.0; print('ok')"
     )
     out = subprocess.run([sys.executable, "-c", code],

@@ -4,10 +4,10 @@ index handoff, and the veneer round-trip."""
 import numpy as np
 import pytest
 
-from dewi_tpu.config import DewiConfig
-from dewi_tpu.corpus import COL, Corpus
-from dewi_tpu.pipelines import DewiPipeline, Document, create_document
-from dewi_tpu.types import SIGNAL_FIELDS
+from dewi.config import DewiConfig
+from dewi.corpus import COL, Corpus
+from dewi.pipelines import DewiPipeline, Document, create_document
+from dewi.types import SIGNAL_FIELDS
 
 
 def tiny_config(**over) -> DewiConfig:
@@ -48,7 +48,7 @@ class TestCorpusContainer:
     def test_mixed_dim_external_embeddings_raise(self):
         """One malformed embedding must fail loudly, not silently discard
         every user vector and re-encode the corpus in CLIP space."""
-        from dewi_tpu.pipelines import Document
+        from dewi.pipelines import Document
 
         docs = [
             Document(doc_id="a", text="x", embedding=np.zeros(8, np.float32)),
@@ -194,7 +194,7 @@ class TestColumnarStream:
 
     def test_shard_digest_no_field_aliasing(self):
         # id/text boundaries are delimited: ('x', '12') != ('x1', '2').
-        from dewi_tpu.pipelines import DewiPipeline as P
+        from dewi.pipelines import DewiPipeline as P
 
         c1 = Corpus(ids=["x"], texts=["12"])
         c2 = Corpus(ids=["x1"], texts=["2"])
@@ -386,7 +386,7 @@ class TestColumnarPacked:
         PIL = pytest.importorskip("PIL")
         from PIL import Image
 
-        from dewi_tpu.io.packed import PackedImages, pack_images
+        from dewi.io.packed import PackedImages, pack_images
 
         rng = np.random.default_rng(2)
         paths = []

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from dewi_tpu.utils.deferred import DeferredFetcher
+from dewi.utils.deferred import DeferredFetcher
 
 
 class TestDeferredFetcher:

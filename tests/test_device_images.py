@@ -5,12 +5,12 @@ budget gate, and full columnar-pipeline numeric parity device vs host."""
 import numpy as np
 import pytest
 
-import dewi_tpu.io.device_images as di_mod
-from dewi_tpu.config import DewiConfig
-from dewi_tpu.corpus import Corpus
-from dewi_tpu.io.device_images import DeviceImages, device_images_or_none
-from dewi_tpu.io.images import iter_corpus_batches, resize_f32
-from dewi_tpu.pipelines import DewiPipeline
+import dewi.io.device_images as di_mod
+from dewi.config import DewiConfig
+from dewi.corpus import Corpus
+from dewi.io.device_images import DeviceImages, device_images_or_none
+from dewi.io.images import iter_corpus_batches, resize_f32
+from dewi.pipelines import DewiPipeline
 
 
 def make_corpus(n=6, size=32, seed=0):
@@ -80,7 +80,7 @@ class TestDeviceImages:
 
 class TestNoisePresentMask:
     def test_array_path_matches_per_doc_list(self):
-        from dewi_tpu.signals.noise import NoiseEstimator
+        from dewi.signals.noise import NoiseEstimator
 
         rng = np.random.default_rng(5)
         imgs = rng.integers(0, 256, (5, 32, 32, 3), dtype=np.uint8)

@@ -8,9 +8,9 @@ import jax
 import numpy as np
 import pytest
 
-from dewi_tpu.index import ExactIndex
-from dewi_tpu.index.store import DocStore
-from dewi_tpu.parallel import ShardedExactSearcher, make_mesh
+from dewi.index import ExactIndex
+from dewi.index.store import DocStore
+from dewi.parallel import ShardedExactSearcher, make_mesh
 
 from tests.test_index import make_payloads, numpy_oracle
 
@@ -83,9 +83,9 @@ def test_l2_sharded(rng):
 class TestShardedQuantized:
     def test_matches_sharded_exact(self):
         import numpy as np
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.metrics import recall_matrix
-        from dewi_tpu.parallel import (
+        from dewi.index.store import DocStore
+        from dewi.metrics import recall_matrix
+        from dewi.parallel import (
             ShardedExactSearcher,
             ShardedQuantizedSearcher,
             make_mesh,
@@ -114,9 +114,9 @@ class TestShardedQuantized:
         # s8xs8 stage-1 on the sharded tier: query quantization adds
         # stage-1 rounding only; the per-shard f32 refine keeps recall.
         import numpy as np
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.metrics import recall_matrix
-        from dewi_tpu.parallel import (
+        from dewi.index.store import DocStore
+        from dewi.metrics import recall_matrix
+        from dewi.parallel import (
             ShardedExactSearcher,
             ShardedQuantizedSearcher,
             make_mesh,
@@ -148,8 +148,8 @@ class TestShardingAfterAttach:
     def test_attach_then_shard(self):
         import jax.numpy as jnp
         import numpy as np
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.parallel import ShardedExactSearcher, make_mesh
+        from dewi.index.store import DocStore
+        from dewi.parallel import ShardedExactSearcher, make_mesh
 
         rng = np.random.default_rng(0)
         n, d = 8 * 16, 16
@@ -164,7 +164,7 @@ class TestShardingAfterAttach:
         q = rng.normal(size=(2, d)).astype(np.float32)
         scores, idx = searcher.search_batch(q, eta=0.0, entropy_pref=0.0)
         # Compare against single-device exact search.
-        from dewi_tpu.index import ExactIndex
+        from dewi.index import ExactIndex
 
         ref = ExactIndex(dim=d)
         ref.add_batch([str(i) for i in range(n)], emb, pay)
@@ -176,8 +176,8 @@ class TestShardingAfterAttach:
 class TestShardedIVF:
     def test_full_probe_matches_exact(self, rng):
         """nprobe_per_shard = local nlist probes every bucket -> exact."""
-        from dewi_tpu.index.ivf import IVFIndex
-        from dewi_tpu.parallel import ShardedIVFSearcher
+        from dewi.index.ivf import IVFIndex
+        from dewi.parallel import ShardedIVFSearcher
 
         n, d, k = 600, 16, 10
         emb = rng.normal(size=(n, d)).astype(np.float32)
@@ -204,8 +204,8 @@ class TestShardedIVF:
     def test_sharded_bf16_buckets(self, rng):
         """ShardedIVFSearcher over a bf16-bucket index: the dtype flows
         through pad0/shard placement and recall vs local search holds."""
-        from dewi_tpu.index.ivf import IVFIndex
-        from dewi_tpu.parallel import ShardedIVFSearcher
+        from dewi.index.ivf import IVFIndex
+        from dewi.parallel import ShardedIVFSearcher
 
         n, d, k = 600, 16, 10
         emb = rng.normal(size=(n, d)).astype(np.float32)
@@ -229,8 +229,8 @@ class TestShardedIVF:
         """k past the probed pool (nprobe*cap + overflow) must clamp, not
         crash the per-shard top_k (review finding: the IVFIndex fix had
         not been applied to the sharded caller)."""
-        from dewi_tpu.index.ivf import IVFIndex
-        from dewi_tpu.parallel import ShardedIVFSearcher
+        from dewi.index.ivf import IVFIndex
+        from dewi.parallel import ShardedIVFSearcher
 
         n, d = 600, 16
         emb = rng.normal(size=(n, d)).astype(np.float32)
@@ -246,9 +246,9 @@ class TestShardedIVF:
         assert idx.shape[0] == 4 and 0 < idx.shape[1] <= 599
 
     def test_partial_probe_recall(self, rng):
-        from dewi_tpu.index.ivf import IVFIndex
-        from dewi_tpu.metrics import recall_matrix
-        from dewi_tpu.parallel import ShardedIVFSearcher
+        from dewi.index.ivf import IVFIndex
+        from dewi.metrics import recall_matrix
+        from dewi.parallel import ShardedIVFSearcher
 
         n, d, k = 2000, 16, 10
         emb = rng.normal(size=(n, d)).astype(np.float32)
@@ -272,21 +272,22 @@ class TestShardedIVF:
 
 class TestShardedQuantizedPallas:
     def test_pallas_stage1_matches_xla_per_shard(self):
-        """Interpret-mode Pallas stage-1 inside shard_map == XLA stage-1."""
+        """Interpret-mode fused kernel stage 1 inside shard_map == XLA
+        two-pass stage 1 (same blockmax selection per shard)."""
         import numpy as np
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.parallel import make_mesh
-        from dewi_tpu.parallel.distributed import make_sharded_quantized_search
-        from dewi_tpu.ops.quantized import quantize_rows
+        from dewi.index.store import DocStore
+        from dewi.parallel import make_mesh
+        from dewi.parallel.distributed import make_sharded_quantized_search
+        from dewi.ops.quantized import quantize_rows
 
         rng = np.random.default_rng(4)
-        n, d = 8 * 128, 32  # shard_cap = 128 rows/device
+        n, d = 8 * 512, 32  # shard_cap = 512 rows/device (4 sub-blocks)
         emb = rng.normal(size=(n, d)).astype(np.float32)
         pay = np.abs(rng.normal(size=(n, 8))).astype(np.float32)
         store = DocStore(dim=d)
         store.add_batch([str(i) for i in range(n)], emb, pay)
         mesh = make_mesh(n_data=8, n_model=1)
-        from dewi_tpu.parallel.mesh import data_sharding
+        from dewi.parallel.mesh import data_sharding
 
         store.sharding = data_sharding(mesh, rank=2)
         emb_d, sqn, payd, nv = store.device_arrays()
@@ -297,15 +298,17 @@ class TestShardedQuantizedPallas:
 
         args = (qe, sc, emb_d, sqn, payd, jnp.asarray(q), nv,
                 jnp.float32(0.25), jnp.float32(0.1))
-        f_x = make_sharded_quantized_search(mesh, k=10, m=40)
+        f_x = make_sharded_quantized_search(mesh, k=10, m=40,
+                                            blockmax_select=True)
         f_p = make_sharded_quantized_search(
-            mesh, k=10, m=40, pallas_stage1=True, pallas_block=64,
+            mesh, k=10, m=40, blockmax_select=True, bmax_kernel=True,
             interpret=True,
         )
         sx, ix = f_x(*args)
         sp, ip = f_p(*args)
-        for a, b in zip(np.asarray(ix), np.asarray(ip)):
-            assert len(set(a.tolist()) & set(b.tolist())) >= 9
+        np.testing.assert_array_equal(np.asarray(ix), np.asarray(ip))
+        np.testing.assert_allclose(np.asarray(sx), np.asarray(sp),
+                                   rtol=1e-6, atol=1e-6)
 
 
 class TestShardedQuantizedL2:
@@ -313,9 +316,9 @@ class TestShardedQuantizedL2:
         """Regression: the sharded int8 tier must honor the store's space
         (it hardcoded normalize=True, silently ranking L2 stores by cosine)."""
         import numpy as np
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.metrics import recall_matrix
-        from dewi_tpu.parallel import (
+        from dewi.index.store import DocStore
+        from dewi.metrics import recall_matrix
+        from dewi.parallel import (
             ShardedExactSearcher, ShardedQuantizedSearcher, make_mesh,
         )
 

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from dewi_tpu import DewiIndex
-from dewi_tpu.config import EvalConfig
-from dewi_tpu.eval import evaluate_index, recall_vs_exact
-from dewi_tpu.index import ExactIndex, QuantizedIndex
+from dewi import DewiIndex
+from dewi.config import EvalConfig
+from dewi.eval import evaluate_index, recall_vs_exact
+from dewi.index import ExactIndex, QuantizedIndex
 
 
 @pytest.fixture(scope="module")

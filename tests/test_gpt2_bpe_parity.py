@@ -59,7 +59,7 @@ def fast():
 
 @pytest.fixture(scope="module")
 def adapter(fast):
-    from dewi_tpu.signals.tokenizer import get_tokenizer
+    from dewi.signals.tokenizer import get_tokenizer
 
     return get_tokenizer(fast)
 
@@ -112,7 +112,7 @@ class TestEstimatorWithGpt2Fixture:
     def test_text_entropy_runs_with_gpt2_bpe(self, fast):
         """End-to-end: the LM estimator over the gpt2-format tokenizer —
         the configuration the reference runs (text_entropy.py:31-38)."""
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         est = TextEntropyEstimator(model_name="tiny", batch_size=4,
                                    max_length=128, tokenizer=fast)

@@ -1,7 +1,7 @@
-"""HF -> DEWI-TPU weight-importer parity tests.
+"""HF -> DEWI weight-importer parity tests.
 
 Each test builds a *random-init* torch model from transformers (no network,
-no hub weights needed), converts it with ``dewi_tpu.models.import_hf``, and
+no hub weights needed), converts it with ``dewi.models.import_hf``, and
 checks the Flax forward reproduces the torch forward in f32.  This proves a
 user with real pretrained checkpoints (local or cached) gets exact semantics
 through ``convert_pretrained`` (VERDICT round 1 items 2-3).
@@ -29,8 +29,8 @@ class TestGPT2Parity:
         return GPT2LMHeadModel(cfg).eval()
 
     def test_logits_match(self, hf_model):
-        from dewi_tpu.models.import_hf import import_gpt2
-        from dewi_tpu.models.lm import CausalLM
+        from dewi.models.import_hf import import_gpt2
+        from dewi.models.lm import CausalLM
 
         cfg, params = import_gpt2(hf_model)
         assert cfg.ln_eps == hf_model.config.layer_norm_epsilon
@@ -54,9 +54,9 @@ class TestGPT2Parity:
     def test_nll_pipeline_shapes(self, hf_model, tmp_path):
         """The imported params round-trip through save_params/TextEntropy's
         token_nll path (end-to-end reachability of imported weights)."""
-        from dewi_tpu.models.import_hf import import_gpt2
-        from dewi_tpu.models.lm import CausalLM, token_nll
-        from dewi_tpu.models.registry import load_params, save_params
+        from dewi.models.import_hf import import_gpt2
+        from dewi.models.lm import CausalLM, token_nll
+        from dewi.models.registry import load_params, save_params
 
         cfg, params = import_gpt2(hf_model)
         path = tmp_path / "gpt2.msgpack"
@@ -99,8 +99,8 @@ class TestCLIPParity:
         return CLIPModel(cfg).eval()
 
     def test_text_features_match(self, hf_model):
-        from dewi_tpu.models.clip import CLIPDualEncoder
-        from dewi_tpu.models.import_hf import import_clip
+        from dewi.models.clip import CLIPDualEncoder
+        from dewi.models.import_hf import import_clip
 
         cfg, params = import_clip(hf_model)
         assert cfg.image_pre_ln and cfg.activation == "quick_gelu"
@@ -125,8 +125,8 @@ class TestCLIPParity:
         np.testing.assert_allclose(got, want, atol=3e-5, rtol=1e-3)
 
     def test_image_features_match(self, hf_model):
-        from dewi_tpu.models.clip import CLIPDualEncoder
-        from dewi_tpu.models.import_hf import import_clip
+        from dewi.models.clip import CLIPDualEncoder
+        from dewi.models.import_hf import import_clip
 
         cfg, params = import_clip(hf_model)
         torch.manual_seed(2)
@@ -162,8 +162,8 @@ class TestViTMAEParity:
         return ViTMAEForPreTraining(cfg).eval()
 
     def test_reconstruction_losses_match(self, hf_model):
-        from dewi_tpu.models.import_hf import import_vit_mae
-        from dewi_tpu.models.mae import ViTMAE, patchify
+        from dewi.models.import_hf import import_vit_mae
+        from dewi.models.mae import ViTMAE, patchify
 
         cfg, params = import_vit_mae(hf_model)
         assert cfg.use_cls and cfg.ln_eps == hf_model.config.layer_norm_eps
@@ -204,12 +204,12 @@ class TestViTMAEParity:
         assert ours == pytest.approx(float(out.loss), rel=1e-3)
 
     def test_cli_import_weights_local_dir(self, tmp_path):
-        """dewi-tpu import-weights from a local save_pretrained dir (the
+        """dewi import-weights from a local save_pretrained dir (the
         offline path; hub names work identically with a warm HF cache)."""
         from click.testing import CliRunner
         from transformers import GPT2Config, GPT2LMHeadModel
 
-        from dewi_tpu.cli import cli
+        from dewi.cli import cli
 
         src = tmp_path / "hf_gpt2"
         torch.manual_seed(0)
@@ -225,9 +225,9 @@ class TestViTMAEParity:
         assert out.exists() and out.stat().st_size > 1000
 
         # The converted checkpoint is loadable through the estimator path.
-        from dewi_tpu.models.import_hf import import_gpt2
-        from dewi_tpu.models.lm import CausalLM
-        from dewi_tpu.models.registry import load_params
+        from dewi.models.import_hf import import_gpt2
+        from dewi.models.lm import CausalLM
+        from dewi.models.registry import load_params
 
         cfg, template = import_gpt2(GPT2LMHeadModel.from_pretrained(src))
         params = load_params(template, out)
@@ -242,11 +242,11 @@ class TestViTMAEParity:
         real imported weights (byte-vocab HF model, so tokenizers align)."""
         from transformers import GPT2Config, GPT2LMHeadModel
 
-        from dewi_tpu.models.import_hf import (
+        from dewi.models.import_hf import (
             import_gpt2, write_sidecar_config,
         )
-        from dewi_tpu.models.registry import save_params
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.models.registry import save_params
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         torch.manual_seed(4)
         hf = GPT2LMHeadModel(
@@ -279,7 +279,7 @@ class TestViTMAEParity:
         grid-length position tables."""
         import jax
 
-        from dewi_tpu.models.mae import MAEConfig, ViTMAE
+        from dewi.models.mae import MAEConfig, ViTMAE
 
         cfg = MAEConfig(image_size=32, patch_size=8, d_model=32, n_heads=2,
                         n_layers=1, d_ff=64, dec_d_model=32, dec_n_heads=2,

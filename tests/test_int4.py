@@ -19,13 +19,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dewi_tpu.ops.quantized import (
+from dewi.ops.quantized import (
     quantize_rows,
     quantize_rows_int4,
     quantized_search,
     unpack_int4,
 )
-from dewi_tpu.ops.similarity import l2_normalize
+from dewi.ops.similarity import l2_normalize
 
 
 def _unpack_np(packed: np.ndarray) -> np.ndarray:
@@ -88,8 +88,8 @@ def _mk(cap=2048, d=32, nq=3, seed=11):
 
 
 class TestS4KernelsInterpret:
-    def test_scores_matrix_s4_matches_oracle(self):
-        from dewi_tpu.ops.pallas_search import pallas_scores_matrix_s4
+    def test_bmax_s4_masks_padding_rows(self):
+        from dewi.ops.pallas_search import pallas_bmax
 
         rng = np.random.default_rng(21)
         cap, d, nq = 1024, 64, 3
@@ -98,21 +98,21 @@ class TestS4KernelsInterpret:
                   + (vals[:, d // 2:] + 8)).astype(np.int8)
         mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
         add = rng.normal(size=cap).astype(np.float32)
-        add[1000:] = -np.inf
+        add[896:] = -np.inf
         q8 = rng.integers(-127, 128, size=(nq, d)).astype(np.int8)
         qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
-        got = np.asarray(pallas_scores_matrix_s4(
+        got = np.asarray(pallas_bmax(
             jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add),
-            jnp.asarray(q8), jnp.asarray(qs), block=256, interpret=True))
+            jnp.asarray(q8), jnp.asarray(qs), mode="s4", interpret=True))
         acc = q8.astype(np.int64) @ vals.astype(np.int64).T
         ref = (acc.astype(np.float32) * (qs[:, None] * mult[None, :])
-               + add[None, :])
-        np.testing.assert_allclose(got[:, :1000], ref[:, :1000],
+               + add[None, :]).reshape(nq, cap // 128, 128).max(-1)
+        np.testing.assert_allclose(got[:, :7], ref[:, :7],
                                    rtol=1e-5, atol=1e-5)
-        assert np.all(np.isneginf(got[:, 1000:]))
+        assert np.all(np.isneginf(got[:, 7:]))
 
     def test_bmax_s4_matches_oracle(self):
-        from dewi_tpu.ops.pallas_search import pallas_bmax_s4
+        from dewi.ops.pallas_search import pallas_bmax
 
         rng = np.random.default_rng(22)
         cap, d, nq, sub = 2048, 64, 2, 128
@@ -123,10 +123,9 @@ class TestS4KernelsInterpret:
         add = rng.normal(size=cap).astype(np.float32)
         q8 = rng.integers(-127, 128, size=(nq, d)).astype(np.int8)
         qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
-        got = np.asarray(pallas_bmax_s4(
+        got = np.asarray(pallas_bmax(
             jnp.asarray(packed), jnp.asarray(mult), jnp.asarray(add),
-            jnp.asarray(q8), jnp.asarray(qs), sub=sub, block=512,
-            interpret=True))
+            jnp.asarray(q8), jnp.asarray(qs), mode="s4", interpret=True))
         acc = q8.astype(np.int64) @ vals.astype(np.int64).T
         adj = (acc.astype(np.float32) * (qs[:, None] * mult[None, :])
                + add[None, :])
@@ -154,14 +153,14 @@ class TestInt4QuantizedSearch:
         return quantized_search(
             unpack_int4(e4), sc, jnp.asarray(emb), jnp.asarray(sqn),
             jnp.asarray(pay), jnp.asarray(q), jnp.int32(n),
-            jnp.float32(0.3), jnp.float32(0.1), **base)
+            jnp.float32(0.3), jnp.float32(0.1), int4_values=True, **base)
 
     def test_xla_fallback_matches_unpacked(self):
-        # pallas_stage1=False: int4_packed unpacks via XLA up front; must
-        # bit-match the search over the pre-unpacked corpus.
+        # No kernel: int4_packed unpacks via XLA up front; must bit-match
+        # the search over the pre-unpacked corpus.
         emb, pay, q, sqn = _mk()
         for i8q in (False, True):
-            kw = dict(int8_queries=i8q, pallas_stage1=False)
+            kw = dict(int8_queries=i8q)
             s_p, i_p = self._search(emb, pay, q, sqn, 1900, **kw)
             s_u, i_u = self._search_unpacked(emb, pay, q, sqn, 1900, **kw)
             np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_u))
@@ -169,73 +168,64 @@ class TestInt4QuantizedSearch:
                                        rtol=1e-6)
 
     def test_scores_kernel_path_matches_unpacked(self):
-        # pallas_stage1 + int8_queries, no blockmax: stage 1 rides
-        # pallas_scores_matrix_s4; integer dot is exact so results must
-        # bit-match the unpacked s8 XLA path.
+        # The kernel serves blockmax selection only: with blockmax off a
+        # kernel request takes the XLA path, which must bit-match the
+        # unpacked s8 path.
         emb, pay, q, sqn = _mk(seed=13)
         s_p, i_p = self._search(
-            emb, pay, q, sqn, 1900, pallas_stage1=True, int8_queries=True,
-            pallas_block=256, interpret=True, approx_select=False)
+            emb, pay, q, sqn, 1900, bmax_kernel=True, int8_queries=True,
+            interpret=True, approx_select=False)
         s_u, i_u = self._search_unpacked(
-            emb, pay, q, sqn, 1900, pallas_stage1=False, int8_queries=True,
-            approx_select=False)
+            emb, pay, q, sqn, 1900, int8_queries=True, approx_select=False)
         np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_u))
         np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_u),
                                    rtol=1e-6)
 
     def test_fused_bmax_matches_unpacked(self):
-        # The headline int4 path: fused s4 stage-1+blockmax kernel.
+        # The headline int4 path: the fused s4 stage-1+blockmax kernel
+        # reading packed nibbles.
         emb, pay, q, sqn = _mk(seed=17)
         kw = dict(int8_queries=True, blockmax_select=True)
         s_p, i_p = self._search(
-            emb, pay, q, sqn, 1900, pallas_stage1=True, fused_bmax=True,
-            pallas_block=2048, interpret=True, **kw)
-        s_u, i_u = self._search_unpacked(
-            emb, pay, q, sqn, 1900, pallas_stage1=False, **kw)
+            emb, pay, q, sqn, 1900, bmax_kernel=True, interpret=True, **kw)
+        s_u, i_u = self._search_unpacked(emb, pay, q, sqn, 1900, **kw)
         np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_u))
         np.testing.assert_allclose(np.asarray(s_p), np.asarray(s_u),
                                    rtol=1e-6)
 
     def test_fused_bmax_large_batch_chunks(self):
-        # Q > BLOCKMAX_REFINE_MAX_Q: the chunked lax.map dispatch must
-        # thread int4_packed through to each 32-query group.
-        from dewi_tpu.ops.quantized import BLOCKMAX_REFINE_MAX_Q
+        # Q > BLOCKMAX_REFINE_MAX_Q: the kernel runs the whole batch (the
+        # query axis is a grid axis) and the winning blocks are re-scored
+        # from the packed rows; must match the unpacked two-pass path.
+        from dewi.ops.quantized import BLOCKMAX_REFINE_MAX_Q
 
         nq = BLOCKMAX_REFINE_MAX_Q + 8
         emb, pay, q, sqn = _mk(nq=nq, seed=19)
         kw = dict(int8_queries=True, blockmax_select=True)
         s_b, i_b = self._search(
-            emb, pay, q, sqn, 1900, pallas_stage1=True, fused_bmax=True,
-            pallas_block=2048, interpret=True, **kw)
-        # Oracle: the same fused path per 32-query group.
-        for start in (0, BLOCKMAX_REFINE_MAX_Q):
-            stop = min(start + BLOCKMAX_REFINE_MAX_Q, nq)
-            s_g, i_g = self._search(
-                emb, pay, q[start:stop], sqn, 1900, pallas_stage1=True,
-                fused_bmax=True, pallas_block=2048, interpret=True, **kw)
-            np.testing.assert_array_equal(np.asarray(i_b)[start:stop],
-                                          np.asarray(i_g))
-            np.testing.assert_allclose(np.asarray(s_b)[start:stop],
-                                       np.asarray(s_g), rtol=1e-6)
+            emb, pay, q, sqn, 1900, bmax_kernel=True, interpret=True, **kw)
+        s_u, i_u = self._search_unpacked(emb, pay, q, sqn, 1900, **kw)
+        np.testing.assert_array_equal(np.asarray(i_b), np.asarray(i_u))
+        np.testing.assert_allclose(np.asarray(s_b), np.asarray(s_u),
+                                   rtol=1e-6)
 
     def test_bf16_queries_unpacks_transparently(self):
-        # int8_queries=False has no s4 kernel: must transparently unpack
-        # and still return valid results through the bf16-query path.
+        # int8_queries=False has no s4 kernel mode: must transparently
+        # unpack and still return the bf16-query results.
         emb, pay, q, sqn = _mk(seed=23)
         s_p, i_p = self._search(
-            emb, pay, q, sqn, 1900, pallas_stage1=True, int8_queries=False,
-            pallas_block=256, interpret=True)
+            emb, pay, q, sqn, 1900, bmax_kernel=True, int8_queries=False,
+            blockmax_select=True, interpret=True)
         s_u, i_u = self._search_unpacked(
-            emb, pay, q, sqn, 1900, pallas_stage1=True, int8_queries=False,
-            pallas_block=256, interpret=True)
+            emb, pay, q, sqn, 1900, int8_queries=False, blockmax_select=True)
         np.testing.assert_array_equal(np.asarray(i_p), np.asarray(i_u))
 
     def test_recall_vs_f32_exact(self):
         # End-to-end gate: int4 stage-1 + wide refine recovers the f32
         # exact top-k.  m=4x the int8 tier's default absorbs the coarser
         # grid (docstring contract; bench gates the 1M shape the same way).
-        from dewi_tpu.metrics import recall_matrix
-        from dewi_tpu.ops.similarity import fused_search
+        from dewi.metrics import recall_matrix
+        from dewi.ops.similarity import fused_search
 
         emb, pay, q, sqn = _mk(cap=4096, nq=32, seed=29)
         n = 4000
@@ -259,8 +249,8 @@ class TestInt4Index:
         return [str(i) for i in range(512)], emb, pay
 
     def test_recall_vs_exact(self, corpus):
-        from dewi_tpu.index import ExactIndex, QuantizedIndex
-        from dewi_tpu.metrics import recall_matrix
+        from dewi.index import ExactIndex, QuantizedIndex
+        from dewi.metrics import recall_matrix
 
         ids, emb, pay = corpus
         exact = ExactIndex(dim=64)
@@ -270,12 +260,10 @@ class TestInt4Index:
         assert q4.int8_queries is True  # implied by int4 storage
         q4.add_batch(ids, emb, pay)
         q4.build()
-        # On backends with the s4 kernels the corpus stays nibble-packed
-        # ([cap, D/2]); elsewhere build caches the unpack ONCE ([cap, D])
-        # so searches never re-unpack per dispatch (round-5 review).
-        from dewi_tpu.ops.pallas_search import s4_kernel_supported
-
-        want = 32 if s4_kernel_supported(fused=False) else 64
+        # Where the fused kernel runs (the GPU) the corpus stays
+        # nibble-packed ([cap, D/2]); elsewhere build caches the unpack
+        # ONCE ([cap, D]) so searches never re-unpack per dispatch.
+        want = 32 if q4._kernel else 64
         assert q4._q_emb.shape == (q4.store.capacity, want)
         q = np.random.default_rng(7).normal(size=(32, 64)).astype(np.float32)
         _, ei = exact.search_batch(q, k=10, eta=0.25, entropy_pref=0.1)
@@ -290,7 +278,7 @@ class TestInt4Index:
                 assert s == pytest.approx(e_by_id[d], abs=1e-5)
 
     def test_save_load_roundtrip(self, corpus, tmp_path):
-        from dewi_tpu.index import QuantizedIndex
+        from dewi.index import QuantizedIndex
 
         ids, emb, pay = corpus
         q4 = QuantizedIndex(dim=64, int4_storage=True)
@@ -305,8 +293,8 @@ class TestInt4Index:
         np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
 
     def test_facade_backend_name(self, corpus):
-        from dewi_tpu import DewiIndex
-        from dewi_tpu.index import QuantizedIndex
+        from dewi import DewiIndex
+        from dewi.index import QuantizedIndex
 
         ids, emb, pay = corpus
         idx = DewiIndex(dim=64, backend="int4")
@@ -317,8 +305,8 @@ class TestInt4Index:
         assert len(idx.search(np.ones(64, np.float32), k=3)) == 3
 
     def test_config_plumbing(self):
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.pipelines import DewiPipeline
+        from dewi.config import DewiConfig
+        from dewi.pipelines import DewiPipeline
 
         cfg = DewiConfig()
         cfg.index.ann = "int4"
@@ -332,9 +320,9 @@ class TestInt4Sharded:
         # int4 shard storage on the 8-device CPU mesh: half the per-device
         # stage-1 read; widened margins keep recall vs the sharded exact
         # searcher.
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.metrics import recall_matrix
-        from dewi_tpu.parallel import (
+        from dewi.index.store import DocStore
+        from dewi.metrics import recall_matrix
+        from dewi.parallel import (
             ShardedExactSearcher,
             ShardedQuantizedSearcher,
             make_mesh,
@@ -355,9 +343,7 @@ class TestInt4Sharded:
         quant = ShardedQuantizedSearcher(s2, mesh, k=10, refine_factor=8,
                                          int4_storage=True)
         assert quant.int8_queries is True  # implied
-        from dewi_tpu.ops.pallas_search import s4_kernel_supported
-
-        want = d // 2 if s4_kernel_supported(fused=False) else d
+        want = d // 2 if quant._kernel else d
         assert quant._q_emb.shape[-1] == want  # packed or build-unpacked
 
         q = rng.normal(size=(6, d)).astype(np.float32)

@@ -7,9 +7,9 @@ eval -> DEWI^tau sampling -> LM training -> re-score with trained weights.
 import numpy as np
 import pytest
 
-from dewi_tpu import DewiConfig, DewiPipeline, create_document
-from dewi_tpu.eval import evaluate_index
-from dewi_tpu.sampling import sample_by_dewi, submodular_pick
+from dewi import DewiConfig, DewiPipeline, create_document
+from dewi.eval import evaluate_index
+from dewi.sampling import sample_by_dewi, submodular_pick
 
 
 @pytest.fixture(scope="module")
@@ -50,7 +50,7 @@ class TestFullStack:
         assert docs[1].redundancy == pytest.approx(1.0, abs=1e-3)
 
     def test_quantized_backend_from_config(self, flow):
-        from dewi_tpu.index import QuantizedIndex
+        from dewi.index import QuantizedIndex
 
         _, _, _, index = flow
         assert isinstance(index._backend, QuantizedIndex)
@@ -66,9 +66,9 @@ class TestFullStack:
         assert report["recall@5"] == pytest.approx(1.0)
 
     def test_sharded_search_matches_single_chip(self, flow):
-        from dewi_tpu.index import ExactIndex
-        from dewi_tpu.index.store import DocStore
-        from dewi_tpu.parallel import ShardedExactSearcher, make_mesh
+        from dewi.index import ExactIndex
+        from dewi.index.store import DocStore
+        from dewi.parallel import ShardedExactSearcher, make_mesh
 
         _, pipe, docs, _ = flow
         emb = np.stack([d.embedding for d in docs]).astype(np.float32)
@@ -98,9 +98,9 @@ class TestFullStack:
         assert len(set(cover.tolist())) == 3
 
     def test_training_then_rescore(self, flow, tmp_path):
-        from dewi_tpu.models import init_lm, lm_config
-        from dewi_tpu.signals import TextEntropyEstimator
-        from dewi_tpu.training import train_lm
+        from dewi.models import init_lm, lm_config
+        from dewi.signals import TextEntropyEstimator
+        from dewi.training import train_lm
 
         _, _, docs, _ = flow
         corpus = [d.text for d in docs] * 4

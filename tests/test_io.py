@@ -1,6 +1,6 @@
 """Image input pipeline: decode, prefetch ordering, cache, dtype flow.
 
-The loader (dewi_tpu/io/images.py) replaces the reference's inline
+The loader (dewi/io/images.py) replaces the reference's inline
 per-stage, per-image decoding (reference image_entropy.py:39-49,
 cross_modal.py:55-60) with threaded decode + prefetched uint8 batches.
 """
@@ -8,7 +8,7 @@ cross_modal.py:55-60) with threaded decode + prefetched uint8 batches.
 import numpy as np
 import pytest
 
-from dewi_tpu.io import (
+from dewi.io import (
     ImageCache,
     decode_batch,
     decode_image_uint8,
@@ -121,13 +121,13 @@ class TestNativeJpegPool:
 
     @pytest.fixture(autouse=True)
     def _need_pool(self):
-        from dewi_tpu import native
+        from dewi import native
 
         if not native.jpeg_pool_available():
             pytest.skip("native jpeg pool unavailable")
 
     def test_batch_matches_pil_closely(self, tmp_path):
-        from dewi_tpu import native
+        from dewi import native
 
         paths = _write_images(tmp_path, 5, size=96, fmt="JPEG")
         res = native.decode_jpeg_batch(paths, 48, threads=2)
@@ -142,7 +142,7 @@ class TestNativeJpegPool:
 
     def test_draft_scale_engages(self, tmp_path):
         # 512 -> 64 is a 1/8 DCT-space decode on both paths.
-        from dewi_tpu import native
+        from dewi import native
 
         rng = np.random.default_rng(5)
         base = rng.integers(0, 256, (8, 8, 3), dtype=np.uint8)
@@ -157,7 +157,7 @@ class TestNativeJpegPool:
         assert np.abs(dec[0].astype(np.float32) - pil).mean() < 4.0
 
     def test_non_jpeg_and_missing_flagged(self, tmp_path):
-        from dewi_tpu import native
+        from dewi import native
 
         paths = _write_images(tmp_path, 2, size=32, fmt="PNG")
         paths.append(str(tmp_path / "missing.jpg"))
@@ -167,7 +167,7 @@ class TestNativeJpegPool:
     def test_truncated_and_garbage_jpeg_no_crash(self, tmp_path):
         # libjpeg's default error handler exit()s the process; the pool's
         # setjmp error manager must contain per-file failures instead.
-        from dewi_tpu import native
+        from dewi import native
 
         (good,) = _write_images(tmp_path, 1, size=64, fmt="JPEG")
         data = (tmp_path / "img_000.jpeg").read_bytes() \
@@ -229,7 +229,7 @@ class TestImageCache:
 
 class TestEstimatorIntegration:
     def test_image_entropy_uint8_matches_f32(self):
-        from dewi_tpu.signals.image_entropy import ImageEntropyEstimator
+        from dewi.signals.image_entropy import ImageEntropyEstimator
 
         est = ImageEntropyEstimator(model_name="tiny", batch_size=2)
         sz = est.image_size
@@ -242,7 +242,7 @@ class TestEstimatorIntegration:
         np.testing.assert_allclose(q_u8, q_f32, rtol=1e-4, atol=1e-5)
 
     def test_clip_encode_uint8_matches_f32(self):
-        from dewi_tpu.signals.cross_modal import CrossModalDependency
+        from dewi.signals.cross_modal import CrossModalDependency
 
         est = CrossModalDependency(model_name="tiny", batch_size=2)
         sz = est.cfg.image_size
@@ -254,8 +254,8 @@ class TestEstimatorIntegration:
         np.testing.assert_allclose(e_u8, e_f32, rtol=1e-3, atol=1e-4)
 
     def test_pipeline_uses_cache_paths(self, tmp_path):
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.pipelines import DewiPipeline, create_document
+        from dewi.config import DewiConfig
+        from dewi.pipelines import DewiPipeline, create_document
 
         paths = _write_images(tmp_path, 4, size=48)
         cfg = DewiConfig.from_dict({
@@ -276,8 +276,8 @@ class TestEstimatorIntegration:
             assert d.noise is not None
 
     def test_pipeline_streaming_fallback_matches_cache(self, tmp_path):
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.pipelines import DewiPipeline, create_document
+        from dewi.config import DewiConfig
+        from dewi.pipelines import DewiPipeline, create_document
 
         paths = _write_images(tmp_path, 4, size=48)
 
@@ -310,7 +310,7 @@ class TestCorpusBatchNormalization:
         """Regression: a 4D float array in [0,255] must score like the same
         images passed as a list (the fast path skipped /255)."""
         import numpy as np
-        from dewi_tpu.signals.image_entropy import ImageEntropyEstimator
+        from dewi.signals.image_entropy import ImageEntropyEstimator
 
         rng = np.random.default_rng(0)
         imgs = rng.uniform(0, 255, size=(4, 32, 32, 3)).astype(np.float32)
@@ -324,7 +324,7 @@ class TestCorpusBatchNormalization:
 
 class TestPackedCorpus:
     def test_pack_and_mmap_roundtrip(self, tmp_path):
-        from dewi_tpu.io.packed import PackedImages, is_packed_corpus, pack_images
+        from dewi.io.packed import PackedImages, is_packed_corpus, pack_images
 
         paths = _write_images(tmp_path, 6, size=64)
         out = tmp_path / "corpus.npy"
@@ -334,7 +334,7 @@ class TestPackedCorpus:
         pack = PackedImages(out)
         assert len(pack) == 6 and pack.base_size == 32
         # Rows match a direct decode exactly.
-        from dewi_tpu.io import decode_image_uint8
+        from dewi.io import decode_image_uint8
 
         np.testing.assert_array_equal(pack[3], decode_image_uint8(paths[3], 32))
 
@@ -343,7 +343,7 @@ class TestPackedCorpus:
         decode failure mid-pack must not leave a structurally valid
         all-zeros corpus at the final path (is_packed_corpus would accept
         it and later runs would silently score zero images)."""
-        from dewi_tpu.io.packed import is_packed_corpus, pack_images
+        from dewi.io.packed import is_packed_corpus, pack_images
 
         paths = _write_images(tmp_path, 4, size=64)
         paths[2] = tmp_path / "missing.jpg"  # decode raises mid-pack
@@ -355,7 +355,7 @@ class TestPackedCorpus:
         assert not (tmp_path / "corpus.npy.tmp.npy").exists()
 
     def test_rows_full_range_zero_copy(self, tmp_path):
-        from dewi_tpu.io.packed import PackedImages, pack_images
+        from dewi.io.packed import PackedImages, pack_images
 
         paths = _write_images(tmp_path, 4, size=48)
         out = tmp_path / "c.npy"
@@ -367,7 +367,7 @@ class TestPackedCorpus:
         assert sub.shape == (2, 16, 16, 3) and sub.dtype == np.uint8
 
     def test_rows_oversize_warns_and_serves_base(self, tmp_path, caplog):
-        from dewi_tpu.io.packed import PackedImages, pack_images
+        from dewi.io.packed import PackedImages, pack_images
 
         paths = _write_images(tmp_path, 2, size=48)
         out = tmp_path / "c.npy"
@@ -383,7 +383,7 @@ class TestPackedCorpus:
     def test_rows_oversize_full_range_zero_copy(self, tmp_path):
         # size > base with a full-range request must serve the mapping
         # itself — a fancy-index here copies the whole file into RAM.
-        from dewi_tpu.io.packed import PackedImages, pack_images
+        from dewi.io.packed import PackedImages, pack_images
 
         paths = _write_images(tmp_path, 3, size=48)
         out = tmp_path / "c.npy"
@@ -394,7 +394,7 @@ class TestPackedCorpus:
     def test_corpus_scale_downscale_is_lazy(self, tmp_path, monkeypatch):
         # Downscale requests past MATERIALIZE_ROWS stream row-by-row
         # instead of pre-allocating [N, size, size, 3] host RAM.
-        from dewi_tpu.io.packed import PackedImages, _ResizedRows, pack_images
+        from dewi.io.packed import PackedImages, _ResizedRows, pack_images
 
         paths = _write_images(tmp_path, 5, size=48)
         out = tmp_path / "c.npy"
@@ -410,7 +410,7 @@ class TestPackedCorpus:
         monkeypatch.setattr(PackedImages, "MATERIALIZE_ROWS", 8192)
         np.testing.assert_array_equal(pack.rows(list(range(5)), 16), eager)
         # The streaming batch iterator consumes the lazy view unchanged.
-        from dewi_tpu.io.images import iter_corpus_batches
+        from dewi.io.images import iter_corpus_batches
 
         chunks = [
             c[: len(c) - p] for c, p in
@@ -420,7 +420,7 @@ class TestPackedCorpus:
         assert got.shape == (5, 16, 16, 3)
 
     def test_is_packed_rejects_other_npy(self, tmp_path):
-        from dewi_tpu.io.packed import is_packed_corpus
+        from dewi.io.packed import is_packed_corpus
 
         p = tmp_path / "other.npy"
         np.save(p, np.zeros((4, 8), np.float32))
@@ -428,7 +428,7 @@ class TestPackedCorpus:
         assert not is_packed_corpus(tmp_path / "missing.npy")
 
     def test_as_documents_views(self, tmp_path):
-        from dewi_tpu.io.packed import PackedImages, pack_images
+        from dewi.io.packed import PackedImages, pack_images
 
         paths = _write_images(tmp_path, 3, size=32)
         out = tmp_path / "c.npy"
@@ -442,9 +442,9 @@ class TestPackedCorpus:
 
     def test_signals_from_packed_documents(self, tmp_path):
         # End-to-end: packed rows flow through compute_signals untouched.
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.io.packed import PackedImages, pack_images
-        from dewi_tpu.pipelines import DewiPipeline
+        from dewi.config import DewiConfig
+        from dewi.io.packed import PackedImages, pack_images
+        from dewi.pipelines import DewiPipeline
 
         paths = _write_images(tmp_path, 4, size=48)
         out = tmp_path / "c.npy"
@@ -462,20 +462,31 @@ class TestPackedCorpus:
 
 class TestEffectiveThreads:
     def test_array_sources_serial(self):
-        from dewi_tpu.io.images import effective_threads
+        from dewi.io.images import effective_threads
 
         arrs = [np.zeros((8, 8, 3), np.uint8)] * 4
         assert effective_threads(8, arrs) == 1
 
     def test_single_core_serial(self, monkeypatch):
-        import dewi_tpu.io.images as m
+        import dewi.io.images as m
 
         monkeypatch.setattr(m.os, "cpu_count", lambda: 1)
         assert m.effective_threads(8, ["a.jpg"]) == 1
 
     def test_multicore_paths_clamped(self, monkeypatch):
-        import dewi_tpu.io.images as m
+        import dewi.io.images as m
 
         monkeypatch.setattr(m.os, "cpu_count", lambda: 4)
         assert m.effective_threads(8, ["a.jpg"]) == 4
         assert m.effective_threads(2, ["a.jpg"]) == 2
+
+
+def test_effective_threads_accepts_array_sources():
+    """A dense [N, H, W, 3] corpus is one ndarray, whose truth value is
+    ambiguous: the pool clamp must test its length, not its truthiness."""
+    from dewi.io.images import effective_threads
+
+    imgs = np.zeros((4, 8, 8, 3), np.uint8)
+    assert effective_threads(4, imgs) == 1
+    assert effective_threads(4, list(imgs)) == 1
+    assert effective_threads(4, []) >= 1

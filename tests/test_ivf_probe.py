@@ -1,17 +1,11 @@
-"""IVF probe implementations: streaming scan vs one-shot gather, bf16 tier.
-
-The scan path exists purely to keep the probed-bucket working set small on
-TPU HBM ([Q, cap, D] live instead of [Q, nprobe, cap, D]); it computes the
-same contractions with f32 accumulation, so rankings must match and scores
-must agree to reduction-order tolerance (einsum tilings differ between the
-two lowerings).
-"""
+"""IVF probe: the streamed probe against the exact index, the bf16 tier,
+and the spill tier."""
 
 import numpy as np
 import pytest
 
-from dewi_tpu.index import IVFIndex
-from dewi_tpu.types import Payload
+from dewi.index import IVFIndex
+from dewi.types import Payload
 
 
 def _build(n=600, d=32, seed=3, **kw):
@@ -26,52 +20,46 @@ def _build(n=600, d=32, seed=3, **kw):
     return ix, emb, rng
 
 
-class TestScanVsGather:
-    def test_rankings_identical_scores_close(self):
-        scan_ix, emb, rng = _build(probe_impl="scan")
-        gather_ix, _, _ = _build(probe_impl="gather")
+class TestProbe:
+    @pytest.mark.parametrize("space", ["cosine", "l2"])
+    def test_full_probe_matches_exact(self, space):
+        """nprobe == nlist probes every bucket: the streamed probe returns
+        the exact index's rankings, and its scores to f32 tolerance."""
+        from dewi.index import ExactIndex
+
+        ix, emb, rng = _build(space=space)
+        ix.nprobe = ix.nlist
+        exact = ExactIndex(dim=emb.shape[1], space=space)
+        exact.add_batch([f"doc{i}" for i in range(len(emb))], emb,
+                        ix.store.payload_matrix()[: len(emb)])
+        exact.build()
         q = rng.normal(size=(9, emb.shape[1])).astype(np.float32)
         for eta, ep in ((0.0, 0.0), (0.4, 0.2)):
-            vs, is_ = scan_ix.search_batch(q, k=12, eta=eta, entropy_pref=ep)
-            vg, ig = gather_ix.search_batch(q, k=12, eta=eta, entropy_pref=ep)
-            np.testing.assert_array_equal(np.asarray(is_), np.asarray(ig))
+            vi, ii = ix.search_batch(q, k=12, eta=eta, entropy_pref=ep)
+            ve, ie = exact.search_batch(q, k=12, eta=eta, entropy_pref=ep)
+            np.testing.assert_array_equal(np.asarray(ii), np.asarray(ie))
             np.testing.assert_allclose(
-                np.asarray(vs), np.asarray(vg), rtol=1e-5, atol=1e-6
+                np.asarray(vi), np.asarray(ve), rtol=1e-5, atol=1e-5
             )
 
-    def test_rankings_identical_l2_space(self):
-        scan_ix, emb, rng = _build(space="l2", probe_impl="scan")
-        gather_ix, _, _ = _build(space="l2", probe_impl="gather")
-        q = rng.normal(size=(5, emb.shape[1])).astype(np.float32)
-        vs, is_ = scan_ix.search_batch(q, k=7, eta=0.3, entropy_pref=0.1)
-        vg, ig = gather_ix.search_batch(q, k=7, eta=0.3, entropy_pref=0.1)
-        np.testing.assert_array_equal(np.asarray(is_), np.asarray(ig))
-        np.testing.assert_allclose(
-            np.asarray(vs), np.asarray(vg), rtol=1e-5, atol=1e-5
-        )
+    @pytest.mark.parametrize("impl", ["auto", "scan", "gather"])
+    def test_saved_probe_impl_still_loads(self, tmp_path, impl):
+        """Indexes saved with the retired probe_impl switch load and search
+        the same as a fresh index; the switch is no longer saved."""
+        import json
 
-    def test_bad_impl_rejected(self):
-        with pytest.raises(ValueError, match="probe_impl"):
-            IVFIndex(dim=8, probe_impl="stream")
-
-    def test_auto_resolves_per_platform(self, tmp_path):
-        """'auto' (the config default) picks the measured winner at dispatch
-        (scan on CPU, gather on TPU), persists as 'auto', and matches the
-        forced layout's rankings."""
-        import jax
-
-        ix, emb, rng = _build(probe_impl="auto")
-        resolved = ix._resolved_probe_impl()
-        expect = "scan" if jax.default_backend() == "cpu" else "gather"
-        assert resolved == expect
-        forced_ix, _, _ = _build(probe_impl=resolved)
-        q = rng.normal(size=(6, emb.shape[1])).astype(np.float32)
-        _, ia = ix.search_batch(q, k=8, eta=0.3, entropy_pref=0.1)
-        _, ifc = forced_ix.search_batch(q, k=8, eta=0.3, entropy_pref=0.1)
-        np.testing.assert_array_equal(np.asarray(ia), np.asarray(ifc))
+        ix, emb, rng = _build()
         ix.save(tmp_path / "ix")
+        meta_path = tmp_path / "ix" / "metadata.json"
+        meta = json.loads(meta_path.read_text())
+        assert "probe_impl" not in meta["hyperparams"]
+        meta["hyperparams"]["probe_impl"] = impl
+        meta_path.write_text(json.dumps(meta))
         back = IVFIndex.load(tmp_path / "ix")
-        assert back.probe_impl == "auto"
+        q = rng.normal(size=(6, emb.shape[1])).astype(np.float32)
+        _, i0 = ix.search_batch(q, k=8, eta=0.3, entropy_pref=0.1)
+        _, i1 = back.search_batch(q, k=8, eta=0.3, entropy_pref=0.1)
+        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
 
     def test_k_larger_than_candidate_pool(self):
         """k=corpus on a small nprobe must clamp to the probed pool
@@ -121,8 +109,8 @@ class TestBf16Tier:
         assert str(bx._dev[1].dtype) == "bfloat16"
 
     def test_property_sweep(self):
-        """Randomized config sweep: every (space, impl, dtype, nlist,
-        nprobe, k) combination must return sorted scores over valid ids
+        """Randomized config sweep: every (space, dtype, nlist, nprobe, k)
+        combination must return sorted scores over valid ids
         and recall no worse than a smaller probe budget."""
         rng = np.random.default_rng(17)
         n, d = 500, 24
@@ -137,17 +125,16 @@ class TestBf16Tier:
             nprobe = int(rng.integers(1, nlist + 1))
             k = int(rng.integers(1, 30))
             space = rng.choice(["cosine", "l2"])
-            impl = rng.choice(["scan", "gather"])
             dtype = rng.choice(["float32", "bfloat16", "auto"])
             ix = IVFIndex(dim=d, space=space, nlist=nlist, nprobe=nprobe,
                           kmeans_iters=2, dewi_tier=int(rng.integers(0, 64)),
-                          probe_impl=impl, probe_dtype=dtype)
+                          probe_dtype=dtype)
             ix.add_batch(ids, emb, pays)
             ix.build()
             vals, idx = ix.search_batch(q, k=k, eta=0.3, entropy_pref=0.1)
             vals, idx = np.asarray(vals), np.asarray(idx)
             cfg = f"trial={trial} nlist={nlist} nprobe={nprobe} k={k} " \
-                  f"{space}/{impl}/{dtype}"
+                  f"{space}/{dtype}"
             assert idx.shape[0] == 7 and 0 < idx.shape[1] <= k, cfg
             valid = idx >= 0
             assert np.all(idx[valid] < n), cfg
@@ -157,11 +144,10 @@ class TestBf16Tier:
                 assert np.all(np.diff(vr) <= 1e-5), (cfg, vr)
 
     def test_hyperparams_roundtrip(self, tmp_path):
-        ix, emb, rng = _build(probe_dtype="bf16", probe_impl="gather")
+        ix, emb, rng = _build(probe_dtype="bf16")
         ix.save(tmp_path / "ix")
         back = IVFIndex.load(tmp_path / "ix")
         assert back.probe_dtype == "bfloat16"
-        assert back.probe_impl == "gather"
         q = rng.normal(size=(4, emb.shape[1])).astype(np.float32)
         v0, i0 = ix.search_batch(q, k=5)
         v1, i1 = back.search_batch(q, k=5)
@@ -185,8 +171,8 @@ class TestSpillTier:
         # recover at least the no-spill recall at equal nprobe (strict
         # improvement is measured on the 1M curve; equality-or-better is
         # the invariant a unit-size corpus can assert deterministically).
-        from dewi_tpu.index import ExactIndex
-        from dewi_tpu.metrics import recall_matrix
+        from dewi.index import ExactIndex
+        from dewi.metrics import recall_matrix
 
         rng = np.random.default_rng(11)
         modes = rng.normal(size=(24, 32)).astype(np.float32)
@@ -216,7 +202,7 @@ class TestSpillTier:
     def test_results_match_exact_at_full_probe(self):
         # nprobe == nlist probes everything: spill duplicates must be
         # invisible (dedup) and results equal to the exact index's.
-        from dewi_tpu.index import ExactIndex
+        from dewi.index import ExactIndex
 
         rng = np.random.default_rng(13)
         emb = rng.normal(size=(400, 16)).astype(np.float32)
@@ -288,7 +274,7 @@ class TestSpillTier:
         # merge must dedup too (found by round-5 code review — the
         # per-shard kernel dedup alone returned rows like
         # [164,164,81,81,...] with bit-equal duplicate scores).
-        from dewi_tpu.parallel import ShardedIVFSearcher, make_mesh
+        from dewi.parallel import ShardedIVFSearcher, make_mesh
 
         rng = np.random.default_rng(19)
         n, d, k = 600, 32, 10

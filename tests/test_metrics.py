@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dewi_tpu.metrics import (
+from dewi.metrics import (
     cluster_coverage,
     dcg_at_k,
     duplicate_rate,

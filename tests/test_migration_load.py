@@ -3,7 +3,7 @@
 The reference's ``ExactIndex.save`` (reference backends.py:483-515 +
 BaseIndex.save backends.py:104-131) writes ``metadata.json`` (dim/space/
 doc_ids/is_trained/type), ``payloads.jsonl`` (``{"id": ..., "payload":
-{...}}`` per line) and ``embeddings.npy``.  DEWI-TPU's ``BaseIndex.load``
+{...}}`` per line) and ``embeddings.npy``.  DEWI's ``BaseIndex.load``
 reads exactly that layout, so a reference-built ExactIndex directory loads
 here as-is — the migration path documented in docs/MIGRATION.md.
 
@@ -16,8 +16,8 @@ import json
 import numpy as np
 import pytest
 
-from dewi_tpu.index import BaseIndex, ExactIndex, IVFIndex
-from dewi_tpu.types import Payload
+from dewi.index import BaseIndex, ExactIndex, IVFIndex
+from dewi.types import Payload
 
 
 def _write_reference_exact_dir(path, n=24, dim=16, seed=0):
@@ -136,3 +136,42 @@ class TestReferenceGraphDirsDegrade:
         index = BaseIndex.load(tmp_path / "ix")
         assert isinstance(index, IVFIndex)
         assert len(index) == 0
+
+
+@pytest.mark.parametrize("cls_name,legacy", [
+    ("ExactIndex", {"use_pallas": True, "blockmax_select": True,
+                    "fused_bmax": False}),
+    ("QuantizedIndex", {"refine_factor": 8, "approx_select": True,
+                        "use_pallas": True, "int8_queries": False,
+                        "bf16_scores": False, "blockmax_select": True,
+                        "int4_storage": False}),
+])
+def test_index_saved_with_kernel_flags_still_loads(tmp_path, cls_name,
+                                                   legacy):
+    """Indexes saved while the tiers carried ``use_pallas`` / ``fused_bmax``
+    hyperparameters load and search; the flags are dropped on re-save."""
+    from dewi.index import QuantizedIndex
+
+    cls = {"ExactIndex": ExactIndex, "QuantizedIndex": QuantizedIndex}[
+        cls_name]
+    rng = np.random.default_rng(3)
+    src = cls(dim=16)
+    ids = [f"d{i}" for i in range(40)]
+    src.add_batch(ids, rng.normal(size=(40, 16)).astype(np.float32),
+                  np.abs(rng.normal(size=(40, 8))).astype(np.float32))
+    src.build()
+    src.save(tmp_path / "idx")
+    meta_path = tmp_path / "idx" / "metadata.json"
+    meta = json.loads(meta_path.read_text())
+    meta["hyperparams"] = legacy
+    meta_path.write_text(json.dumps(meta))
+
+    loaded = BaseIndex.load(tmp_path / "idx")
+    assert type(loaded) is cls and len(loaded) == 40
+    q = rng.normal(size=16).astype(np.float32)
+    assert [r[0] for r in loaded.search(q, k=5)] == \
+        [r[0] for r in src.search(q, k=5)]
+    loaded.save(tmp_path / "again")
+    again = json.loads((tmp_path / "again" / "metadata.json").read_text())
+    assert "use_pallas" not in again["hyperparams"]
+    assert "fused_bmax" not in again["hyperparams"]

@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dewi_tpu.models import (
+from dewi.models import (
     clip_config,
     init_clip,
     init_lm,

@@ -7,14 +7,14 @@ import optax
 import pytest
 from jax.sharding import Mesh
 
-from dewi_tpu.models.lm import token_nll
-from dewi_tpu.models.moe import (
+from dewi.models.lm import token_nll
+from dewi.models.moe import (
     MoECausalLM,
     MoEMLP,
     load_balance_loss,
     shard_expert_params,
 )
-from dewi_tpu.models.registry import lm_config
+from dewi.models.registry import lm_config
 
 
 def f32_cfg(**over):
@@ -177,7 +177,7 @@ class TestPadMaskRouting:
                                    np.asarray(out_h), rtol=1e-5, atol=1e-5)
         # Pad rows produce zero output (dropped from dispatch entirely).
         assert np.all(np.abs(np.asarray(out_f)[:, 4:]) < 1e-12)
-        from dewi_tpu.models.moe import load_balance_loss
+        from dewi.models.moe import load_balance_loss
         a_f = float(load_balance_loss(mut_f))
         a_h = float(load_balance_loss(mut_h))
         np.testing.assert_allclose(a_f, a_h, rtol=1e-5)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dewi_tpu import native
-from dewi_tpu.types import PAYLOAD_FIELDS
+from dewi import native
+from dewi.types import PAYLOAD_FIELDS
 
 
 class TestPayloadCodec:
@@ -44,7 +44,7 @@ class TestPayloadCodec:
         ids = [f"d{i}" for i in range(20)]
         mat = np.random.default_rng(1).random((20, 8)).astype(np.float32)
         native.write_payloads_jsonl(tmp_path / "n.jsonl", ids, mat)
-        monkeypatch.setenv("DEWI_TPU_NO_NATIVE", "1")
+        monkeypatch.setenv("DEWI_NO_NATIVE", "1")
         monkeypatch.setattr(native, "_tried", False)
         monkeypatch.setattr(native, "_lib", None)
         assert not native.available()
@@ -90,8 +90,8 @@ class TestNativeMinhash:
 
 class TestIndexIntegration:
     def test_save_load_uses_codec(self, tmp_path):
-        from dewi_tpu import DewiIndex
-        from dewi_tpu.types import Payload
+        from dewi import DewiIndex
+        from dewi.types import Payload
 
         rng = np.random.default_rng(0)
         idx = DewiIndex(dim=8)

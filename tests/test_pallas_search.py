@@ -1,360 +1,229 @@
-"""Pallas streaming-search kernel tests (interpret mode on the CPU mesh)."""
+"""Fused stage-1 + sub-block max kernel (Pallas, Triton route).
+
+On the CPU the kernel runs in the Pallas interpreter (``interpret=True``);
+compiled for the card, the same checks run in ``chip_smoke.py`` (phase 5)
+and in the ``gpu``-marked case below.
+"""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dewi_tpu.ops.pallas_search import BLOCK, pallas_fused_search
-from dewi_tpu.ops.similarity import fused_search, l2_normalize
+from dewi.ops.pallas_search import (
+    SUB,
+    kernel_fits,
+    kernel_runs_here,
+    pallas_bmax,
+)
+from dewi.ops.quantized import (
+    quantize_rows,
+    quantize_rows_int4,
+    quantized_search,
+    stage1_mode,
+    unpack_int4,
+)
+from dewi.ops.similarity import EXACT_PRECISION, fused_search, l2_normalize
 
 
-def setup_arrays(cap=2048, d=64, q=3, seed=0):
+def _corpus(cap=2048, d=64, seed=0):
     rng = np.random.default_rng(seed)
-    emb = np.asarray(
-        l2_normalize(jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32)))
-    )
-    pay = np.abs(rng.normal(size=(cap, 8))).astype(np.float32)
-    queries = np.asarray(
-        l2_normalize(jnp.asarray(rng.normal(size=(q, d)).astype(np.float32)))
-    )
-    return jnp.asarray(emb), jnp.asarray(pay), jnp.asarray(queries)
+    x = jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32))
+    mult = jnp.asarray(rng.uniform(0.5, 1.0, cap).astype(np.float32))
+    add = jnp.asarray(rng.uniform(0.0, 0.1, cap).astype(np.float32))
+    return x, mult, add
 
 
-def run_both(emb, pay, q, n_valid, eta, ep, k, block=1024):
-    sqn = jnp.sum(emb * emb, axis=1)
-    s_ref, i_ref = fused_search(
-        emb, sqn, pay, q, jnp.int32(n_valid),
-        jnp.float32(eta), jnp.float32(ep), k=k,
-    )
-    s_pl, i_pl = pallas_fused_search(
-        emb, pay, q, jnp.int32(n_valid),
-        jnp.float32(eta), jnp.float32(ep), k=k, block=block, interpret=True,
-    )
-    return map(np.asarray, (s_ref, i_ref, s_pl, i_pl))
+def _oracle(e_int, q, q_scale, mult, add):
+    """numpy float64 ``max over 128-row blocks of (q.e)*qs*mult + add``."""
+    acc = np.asarray(q, np.float64) @ np.asarray(e_int, np.float64).T
+    adj = acc * np.asarray(q_scale, np.float64)[:, None] * np.asarray(mult) \
+        + np.asarray(add)
+    return adj.reshape(q.shape[0], -1, SUB).max(-1)
 
 
-class TestPallasSearch:
-    def test_matches_xla_scores_and_sets(self):
-        emb, pay, q = setup_arrays()
-        s_ref, i_ref, s_pl, i_pl = run_both(emb, pay, q, 2000, 0.3, 0.1, k=10)
-        np.testing.assert_allclose(s_ref, s_pl, rtol=1e-5, atol=1e-5)
-        for a, b in zip(i_ref, i_pl):
-            assert set(a.tolist()) == set(b.tolist())
-
-    def test_validity_mask(self):
-        # Only the first 5 rows are live; no padding index may appear.
-        emb, pay, q = setup_arrays(cap=1024, d=32, q=2)
-        _, _, s_pl, i_pl = run_both(emb, pay, q, 5, 0.0, 0.0, k=5, block=256)
-        assert i_pl.max() < 5
-
-    def test_multi_block_merge(self):
-        # Force many grid steps so the running-buffer merge is exercised.
-        emb, pay, q = setup_arrays(cap=2048, d=32, q=2, seed=3)
-        s_ref, i_ref, s_pl, i_pl = run_both(
-            emb, pay, q, 2048, 0.5, 0.2, k=7, block=256
-        )
-        np.testing.assert_allclose(s_ref, s_pl, rtol=1e-5, atol=1e-5)
-
-    def test_eta_extremes(self):
-        emb, pay, q = setup_arrays(cap=1024, d=32, q=2, seed=5)
-        for eta in (0.0, 1.0):
-            s_ref, i_ref, s_pl, i_pl = run_both(
-                emb, pay, q, 1000, eta, 0.0, k=5, block=512
-            )
-            np.testing.assert_allclose(s_ref, s_pl, rtol=1e-5, atol=1e-5)
-
-    def test_capacity_must_divide(self):
-        emb, pay, q = setup_arrays(cap=1024, d=32, q=1)
-        with pytest.raises(AssertionError):
-            pallas_fused_search(
-                emb, pay, q, jnp.int32(10), jnp.float32(0.5),
-                jnp.float32(0.0), k=5, block=3000, interpret=True,
-            )
+def _kernel_inputs(mode, x, nq, seed=1):
+    rng = np.random.default_rng(seed)
+    q = l2_normalize(jnp.asarray(rng.normal(size=(nq, x.shape[1]))
+                                 .astype(np.float32)))
+    if mode == "bf16":
+        e, _ = quantize_rows(x)
+        qk = q.astype(jnp.bfloat16).astype(jnp.float32)
+        return e, e, q, qk, jnp.ones((nq,), jnp.float32)
+    qi, qs = quantize_rows(q)
+    if mode == "s8":
+        e, _ = quantize_rows(x)
+        return e, e, qi, qi, qs
+    p4, _ = quantize_rows_int4(x)
+    return p4, unpack_int4(p4), qi, qi, qs
 
 
-class TestPallasInt8:
-    def test_matches_numpy_oracle(self):
-        from dewi_tpu.ops.pallas_search import pallas_int8_search
-        from dewi_tpu.ops.similarity import rerank_scores
+class TestBmaxKernel:
+    @pytest.mark.parametrize("mode", ["bf16", "s8", "s4"])
+    @pytest.mark.parametrize("nq", [1, 20, 70])
+    def test_matches_oracle(self, mode, nq):
+        """Each mode at a query count below, inside and above one tile."""
+        x, mult, add = _corpus()
+        e_kernel, e_int, q_in, q_oracle, qs = _kernel_inputs(mode, x, nq)
+        got = np.asarray(pallas_bmax(e_kernel, mult, add, q_in, qs,
+                                     mode=mode, interpret=True))
+        want = _oracle(e_int, q_oracle, qs, mult, add)
+        assert got.shape == (nq, x.shape[0] // SUB)
+        tol = 1e-4 if mode == "bf16" else 1e-5
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
 
-        emb, pay, q = setup_arrays(cap=2048, d=64, q=3, seed=11)
-        e8 = np.clip(np.round(np.asarray(emb) * 127), -127, 127).astype(np.int8)
-        sc = (np.abs(np.asarray(emb)).max(axis=1) / 127.0).astype(np.float32)
-        s, i = pallas_int8_search(
-            jnp.asarray(e8), jnp.asarray(sc), pay, q,
-            jnp.int32(2000), jnp.float32(0.3), jnp.float32(0.1),
-            k=10, block=512, interpret=True,
-        )
-        sim = (np.asarray(q) @ e8.astype(np.float32).T) * sc[None, :]
-        adj = np.array(rerank_scores(jnp.asarray(sim), pay,
-                                     jnp.float32(0.3), jnp.float32(0.1)))
-        adj[:, 2000:] = -np.inf
-        ref = np.argsort(-adj, axis=1)[:, :10]
-        for a, b in zip(np.asarray(i), ref):
-            assert len(set(a.tolist()) & set(b.tolist())) >= 9  # bf16 cast slack
-
-
-class TestPallasScoresMatrix:
-    """Scores-only stage-1 kernel (selection stays in XLA outside)."""
-
-    def test_matches_xla_fold_multiblock(self):
-        from dewi_tpu.ops.pallas_search import pallas_scores_matrix
-
-        rng = np.random.default_rng(21)
-        cap, d, nq = 2048, 64, 3
-        e8 = rng.integers(-127, 128, size=(cap, d)).astype(np.int8)
-        mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
-        add = rng.normal(size=cap).astype(np.float32)
-        add[2000:] = -np.inf
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        got = np.asarray(pallas_scores_matrix(
-            jnp.asarray(e8), jnp.asarray(mult), jnp.asarray(add),
-            jnp.asarray(q), block=256, interpret=True,
-        ))
-        # Reference with the same bf16 operand cast the kernel applies.
-        acc = np.asarray(jax.lax.dot_general(
-            jnp.asarray(q).astype(jnp.bfloat16),
-            jnp.asarray(e8).astype(jnp.bfloat16),
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32))
-        ref = acc * mult[None, :] + add[None, :]
-        np.testing.assert_allclose(got[:, :2000], ref[:, :2000],
-                                   rtol=1e-5, atol=1e-4)
-        assert np.all(np.isneginf(got[:, 2000:]))
-
-    def test_bf16_out_dtype(self):
-        """out_dtype=bf16 writes a bf16 matrix equal to the f32 one rounded."""
-        from dewi_tpu.ops.pallas_search import pallas_scores_matrix
-
-        rng = np.random.default_rng(23)
-        cap, d, nq = 1024, 64, 2
-        e8 = rng.integers(-127, 128, size=(cap, d)).astype(np.int8)
-        mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
-        add = rng.normal(size=cap).astype(np.float32)
-        add[1000:] = -np.inf
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        args = (jnp.asarray(e8), jnp.asarray(mult), jnp.asarray(add),
-                jnp.asarray(q))
-        f32 = pallas_scores_matrix(*args, block=256, interpret=True)
-        b16 = pallas_scores_matrix(*args, block=256, interpret=True,
-                                   out_dtype=jnp.bfloat16)
-        assert b16.dtype == jnp.bfloat16
-        np.testing.assert_allclose(
-            np.asarray(b16[:, :1000], dtype=np.float32),
-            np.asarray(f32[:, :1000].astype(jnp.bfloat16), dtype=np.float32))
-        assert np.all(np.isneginf(np.asarray(b16[:, 1000:],
-                                             dtype=np.float32)))
-
-    def test_quantized_search_pallas_stage1_parity(self):
-        from dewi_tpu.ops.quantized import quantize_rows, quantized_search
-        from dewi_tpu.ops.pallas_search import SCORES_BLOCK
-
-        rng = np.random.default_rng(22)
-        cap, d, nq, n = SCORES_BLOCK, 32, 2, 6000
-        emb = np.asarray(l2_normalize(
-            jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32))))
-        pay = np.abs(rng.normal(size=(cap, 8))).astype(np.float32)
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        e8, sc = quantize_rows(jnp.asarray(emb))
-        sqn = jnp.sum(jnp.asarray(emb) ** 2, axis=1)
-        common = dict(k=10, m=80, normalize=True, approx_select=False)
-        s_x, i_x = quantized_search(
-            e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay), jnp.asarray(q),
-            jnp.int32(n), jnp.float32(0.3), jnp.float32(0.1),
-            pallas_stage1=False, **common)
-        s_p, i_p = quantized_search(
-            e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay), jnp.asarray(q),
-            jnp.int32(n), jnp.float32(0.3), jnp.float32(0.1),
-            pallas_stage1=True, interpret=True, **common)
-        # Stage-2 refine is exact over the candidate set; bf16 stage-1
-        # noise can only reorder the candidate tail.
-        for a, b in zip(np.asarray(i_x), np.asarray(i_p)):
-            assert len(set(a.tolist()) & set(b.tolist())) >= 9
-        np.testing.assert_allclose(
-            np.sort(np.asarray(s_x), axis=1)[:, -9:],
-            np.sort(np.asarray(s_p), axis=1)[:, -9:], rtol=1e-4, atol=1e-4)
-
-
-class TestPallasScoresMatrixS8:
-    """Native s8xs8 scores kernel: integer stage-1 with folded query scale."""
-
-    def test_matches_int_oracle_multiblock(self):
-        from dewi_tpu.ops.pallas_search import pallas_scores_matrix_s8
-
-        rng = np.random.default_rng(31)
-        cap, d, nq = 2048, 64, 3
-        e8 = rng.integers(-127, 128, size=(cap, d)).astype(np.int8)
-        q8 = rng.integers(-127, 128, size=(nq, d)).astype(np.int8)
-        qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
-        mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
-        add = rng.normal(size=cap).astype(np.float32)
-        add[2000:] = -np.inf
-        got = np.asarray(pallas_scores_matrix_s8(
-            jnp.asarray(e8), jnp.asarray(mult), jnp.asarray(add),
-            jnp.asarray(q8), jnp.asarray(qs), block=256, interpret=True,
-        ))
-        # Integer matmul is exact; only the f32 epilogue rounds.
-        acc = q8.astype(np.int64) @ e8.astype(np.int64).T
-        ref = (acc.astype(np.float32) * (qs[:, None] * mult[None, :])
-               + add[None, :])
-        np.testing.assert_allclose(got[:, :2000], ref[:, :2000],
+    @pytest.mark.parametrize("cap", [128 * 3, 128 * 10])
+    def test_misaligned_capacity(self, cap):
+        """Capacities that are whole sub-blocks but not whole programs: the
+        program walks fewer sub-blocks so the grid still tiles exactly."""
+        x, mult, add = _corpus(cap=cap, d=32, seed=cap)
+        e, e_int, q_in, q_or, qs = _kernel_inputs("s8", x, 3)
+        got = np.asarray(pallas_bmax(e, mult, add, q_in, qs, mode="s8",
+                                     interpret=True))
+        np.testing.assert_allclose(got, _oracle(e_int, q_or, qs, mult, add),
                                    rtol=1e-5, atol=1e-5)
-        assert np.all(np.isneginf(got[:, 2000:]))
 
-    def test_bmax_kernels_match_oracle(self):
-        """Fused stage-1+max kernels: [Q, cap/sub] maxima == two-pass oracle."""
-        from dewi_tpu.ops.pallas_search import pallas_bmax, pallas_bmax_s8
+    def test_masked_rows_are_neg_inf(self):
+        """A -inf addend (padding rows past n_valid) wins no block max."""
+        x, mult, add = _corpus(cap=1024, d=32)
+        add = add.at[512:].set(-jnp.inf)
+        e, _, q_in, _, qs = _kernel_inputs("s8", x, 2)
+        got = np.asarray(pallas_bmax(e, mult, add, q_in, qs, mode="s8",
+                                     interpret=True))
+        assert np.isfinite(got[:, :4]).all()
+        assert np.isneginf(got[:, 4:]).all()
 
-        rng = np.random.default_rng(41)
-        cap, d, nq, sub = 2048, 64, 3, 128
-        e8 = rng.integers(-127, 128, size=(cap, d)).astype(np.int8)
-        mult = rng.uniform(0.5, 1.5, size=cap).astype(np.float32)
-        add = rng.normal(size=cap).astype(np.float32)
-        add[2000:] = -np.inf
-        # s8 variant: integer matmul is exact, f32 epilogue + max.
-        q8 = rng.integers(-127, 128, size=(nq, d)).astype(np.int8)
-        qs = rng.uniform(0.01, 0.1, size=nq).astype(np.float32)
-        got = np.asarray(pallas_bmax_s8(
-            jnp.asarray(e8), jnp.asarray(mult), jnp.asarray(add),
-            jnp.asarray(q8), jnp.asarray(qs), sub=sub, block=512,
-            interpret=True))
-        acc = q8.astype(np.int64) @ e8.astype(np.int64).T
-        adj = (acc.astype(np.float32) * (qs[:, None] * mult[None, :])
-               + add[None, :])
-        ref = adj.reshape(nq, cap // sub, sub).max(axis=-1)
-        assert got.shape == (nq, cap // sub)
-        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5)
-        # bf16-query variant (same operand cast as pallas_scores_matrix).
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        got_b = np.asarray(pallas_bmax(
-            jnp.asarray(e8), jnp.asarray(mult), jnp.asarray(add),
-            jnp.asarray(q), sub=sub, block=512, interpret=True))
-        acc_b = np.asarray(jax.lax.dot_general(
-            jnp.asarray(q).astype(jnp.bfloat16),
-            jnp.asarray(e8).astype(jnp.bfloat16),
-            dimension_numbers=(((1,), (1,)), ((), ())),
-            preferred_element_type=jnp.float32))
-        adj_b = acc_b * mult[None, :] + add[None, :]
-        ref_b = adj_b.reshape(nq, cap // sub, sub).max(axis=-1)
-        np.testing.assert_allclose(got_b, ref_b, rtol=1e-5, atol=1e-4)
+    def test_kernel_fits_shape_rules(self):
+        assert kernel_fits(1 << 20, 256, "bf16")
+        assert kernel_fits(1 << 20, 256, "s4")           # packed width 128
+        assert not kernel_fits(1000, 256, "s8")          # not whole blocks
+        assert not kernel_fits(1024, 384, "s8")          # width not 2^k
+        assert not kernel_fits(1024, 16, "s4")           # packed width 8
+        assert not kernel_fits(1024, 64, "fp8")
 
-    def test_quantized_search_fused_bmax_matches_two_pass(self):
-        # fused_bmax routes stage 1 through the bmax kernel; selection math
-        # is identical to the two-pass blockmax path, and the s8 integer
-        # stage-1 is exact, so results must match bit-for-bit.
-        from dewi_tpu.ops.quantized import quantize_rows, quantized_search
+    def test_stage1_mode(self):
+        assert stage1_mode(False, False) == "bf16"
+        assert stage1_mode(True, False) == "s8"
+        assert stage1_mode(True, True) == "s4"
 
-        rng = np.random.default_rng(42)
-        cap, d, nq, n = 2048, 32, 2, 1800
-        emb = np.asarray(l2_normalize(
-            jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32))))
-        pay = np.abs(rng.normal(size=(cap, 8))).astype(np.float32)
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        e8, sc = quantize_rows(jnp.asarray(emb))
-        sqn = jnp.sum(jnp.asarray(emb) ** 2, axis=1)
-        for i8q in (True, False):
-            common = dict(k=10, m=80, normalize=True, blockmax_select=True,
-                          int8_queries=i8q)
-            s_x, i_x = quantized_search(
-                e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay),
-                jnp.asarray(q), jnp.int32(n), jnp.float32(0.3),
-                jnp.float32(0.1), pallas_stage1=False, **common)
-            s_f, i_f = quantized_search(
-                e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay),
-                jnp.asarray(q), jnp.int32(n), jnp.float32(0.3),
-                jnp.float32(0.1), pallas_stage1=True, fused_bmax=True,
-                pallas_block=2048, interpret=True, **common)
-            if i8q:
-                np.testing.assert_array_equal(np.asarray(i_x),
-                                              np.asarray(i_f))
-                np.testing.assert_allclose(np.asarray(s_x), np.asarray(s_f),
-                                           rtol=1e-6, atol=1e-6)
-            else:
-                # bf16 operand cast noise can reorder the candidate tail.
-                for a, b in zip(np.asarray(i_x), np.asarray(i_f)):
-                    assert len(set(a.tolist()) & set(b.tolist())) >= 9
 
-    def test_quantized_search_fused_bmax_large_batch(self):
-        # Q > BLOCKMAX_REFINE_MAX_Q with fused_bmax: the batch chunks into
-        # 32-query groups under lax.map, each re-running the small-Q fused
-        # pipeline (one corpus pass per group; [Q, cap] never exists).
-        # Results must EXACTLY equal running the small-Q fused path on
-        # each group directly — plus a sanity overlap vs the materialized
-        # path (the chunked route refines s*128 >= m candidates, so its
-        # tail can only be at least as exact).
-        from dewi_tpu.ops.quantized import (
-            BLOCKMAX_REFINE_MAX_Q, quantize_rows, quantized_search,
-        )
+def _search_inputs(cap=4096, d=32, nq=3, n_valid=3900, seed=7):
+    rng = np.random.default_rng(seed)
+    emb = l2_normalize(jnp.asarray(rng.normal(size=(cap, d))
+                                   .astype(np.float32)))
+    pay = jnp.asarray(np.abs(rng.normal(size=(cap, 8))).astype(np.float32))
+    q = jnp.asarray(rng.normal(size=(nq, d)).astype(np.float32))
+    sqn = jnp.sum(emb * emb, axis=1)
+    return emb, sqn, pay, q, jnp.int32(n_valid)
 
-        rng = np.random.default_rng(7)
-        cap, d, n = 2048, 32, 1900
-        g = BLOCKMAX_REFINE_MAX_Q
-        nq = g + 8  # exercises the padded final group too
-        emb = np.asarray(l2_normalize(
-            jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32))))
-        pay = np.abs(rng.normal(size=(cap, 8))).astype(np.float32)
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        e8, sc = quantize_rows(jnp.asarray(emb))
-        sqn = jnp.sum(jnp.asarray(emb) ** 2, axis=1)
-        common = dict(k=10, m=256, normalize=True, blockmax_select=True,
-                      int8_queries=True)
-        fused = dict(pallas_stage1=True, fused_bmax=True, pallas_block=1024,
-                     interpret=True)
-        s_f, i_f = quantized_search(
-            e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay), jnp.asarray(q),
-            jnp.int32(n), jnp.float32(0.3), jnp.float32(0.1),
-            **common, **fused)
-        parts = []
-        for s0 in range(0, nq, g):
-            chunk = q[s0 : s0 + g]
-            _, i_c = quantized_search(
-                e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay),
-                jnp.asarray(chunk), jnp.int32(n), jnp.float32(0.3),
-                jnp.float32(0.1), **common, **fused)
-            parts.append(np.asarray(i_c))
-        np.testing.assert_array_equal(np.asarray(i_f),
-                                      np.concatenate(parts)[:nq])
-        s_x, i_x = quantized_search(
-            e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay), jnp.asarray(q),
-            jnp.int32(n), jnp.float32(0.3), jnp.float32(0.1),
-            pallas_stage1=False, **common)
-        for a, b in zip(np.asarray(i_x), np.asarray(i_f)):
-            assert len(set(a.tolist()) & set(b.tolist())) >= 8
 
-    def test_quantized_search_s8_pallas_matches_s8_xla(self):
-        # pallas_stage1 + int8_queries routes through the s8 kernel; the
-        # integer stage-1 accumulation is identical to the XLA int8_queries
-        # path, so the full two-stage result must match exactly.
-        from dewi_tpu.ops.quantized import quantize_rows, quantized_search
+def _qsearch(emb, sqn, pay, q, n, *, int4=False, kernel=False, **kw):
+    if int4:
+        packed, sc = quantize_rows_int4(emb)
+        e = packed if kernel else unpack_int4(packed)
+        kw.update(int8_queries=True, int4_packed=kernel,
+                  int4_values=not kernel)
+    else:
+        e, sc = quantize_rows(emb)
+    return quantized_search(
+        e, sc, emb, sqn, pay, q, n, jnp.float32(0.3), jnp.float32(0.1),
+        k=10, m=80, blockmax_select=True, bmax_kernel=kernel,
+        interpret=kernel, **kw)
 
-        rng = np.random.default_rng(32)
-        cap, d, nq, n = 2048, 32, 2, 1800
-        emb = np.asarray(l2_normalize(
-            jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32))))
-        pay = np.abs(rng.normal(size=(cap, 8))).astype(np.float32)
-        q = rng.normal(size=(nq, d)).astype(np.float32)
-        e8, sc = quantize_rows(jnp.asarray(emb))
-        sqn = jnp.sum(jnp.asarray(emb) ** 2, axis=1)
-        common = dict(k=10, m=80, normalize=True, approx_select=False,
-                      int8_queries=True)
-        s_x, i_x = quantized_search(
-            e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay), jnp.asarray(q),
-            jnp.int32(n), jnp.float32(0.3), jnp.float32(0.1),
-            pallas_stage1=False, **common)
-        s_p, i_p = quantized_search(
-            e8, sc, jnp.asarray(emb), sqn, jnp.asarray(pay), jnp.asarray(q),
-            jnp.int32(n), jnp.float32(0.3), jnp.float32(0.1),
-            pallas_stage1=True, pallas_block=256, interpret=True, **common)
-        np.testing.assert_array_equal(np.asarray(i_x), np.asarray(i_p))
-        np.testing.assert_allclose(np.asarray(s_x), np.asarray(s_p),
+
+class TestQuantizedSearchKernelPath:
+    @pytest.mark.parametrize("queries", ["bf16", "int8", "int4"])
+    @pytest.mark.parametrize("normalize", [True, False])
+    def test_fused_matches_two_pass(self, queries, normalize):
+        """The kernel path selects the same blocks as XLA's two-pass path
+        (identical stage-1 math), so results agree exactly."""
+        emb, sqn, pay, q, n = _search_inputs()
+        kw = dict(normalize=normalize, int4=queries == "int4",
+                  int8_queries=queries == "int8")
+        s0, i0 = _qsearch(emb, sqn, pay, q, n, **kw)
+        s1, i1 = _qsearch(emb, sqn, pay, q, n, kernel=True, **kw)
+        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
+        np.testing.assert_allclose(np.asarray(s0), np.asarray(s1),
+                                   rtol=1e-6, atol=1e-6)
+
+    @pytest.mark.parametrize("int4", [False, True])
+    def test_large_batch_rescores_winning_blocks(self, int4):
+        """Q > 32: no [Q, cap] scores exist on the kernel path, so the
+        winning blocks are re-scored from the quantized rows; results must
+        equal the two-pass path's score gather."""
+        emb, sqn, pay, q, n = _search_inputs(nq=40, seed=9)
+        s0, i0 = _qsearch(emb, sqn, pay, q, n, int4=int4, int8_queries=int4)
+        s1, i1 = _qsearch(emb, sqn, pay, q, n, int4=int4, int8_queries=int4,
+                          kernel=True)
+        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
+        np.testing.assert_allclose(np.asarray(s0), np.asarray(s1),
+                                   rtol=1e-6, atol=1e-6)
+
+    def test_misfit_shape_takes_xla_path(self):
+        """A capacity the kernel cannot tile silently stays on XLA — no
+        kernel is traced, so this runs without interpret mode."""
+        emb, sqn, pay, q, n = _search_inputs(cap=1000, n_valid=990)
+        e, sc = quantize_rows(emb)
+        s, i = quantized_search(
+            e, sc, emb, sqn, pay, q, n, jnp.float32(0.3), jnp.float32(0.1),
+            k=10, m=80, blockmax_select=True, bmax_kernel=True)
+        assert int(np.asarray(i).max()) < 990
+        assert np.isfinite(np.asarray(s)).all()
+
+    def test_refine_runs_at_exact_precision(self):
+        """Stage 2 re-scores candidates at EXACT_PRECISION: with full refine
+        the scores equal a float32 HIGHEST-precision oracle."""
+        emb, sqn, pay, q, n = _search_inputs(cap=1024, n_valid=1024)
+        e, sc = quantize_rows(emb)
+        s, i = quantized_search(
+            e, sc, emb, sqn, pay, q, n, jnp.float32(0.3), jnp.float32(0.1),
+            k=10, m=1024, blockmax_select=False, approx_select=False)
+        qn = l2_normalize(q)
+        sim = jnp.dot(qn, emb.T, precision=EXACT_PRECISION)
+        adj = 0.7 * sim + 0.3 * pay[:, 0] + 0.1 * 0.5 * (pay[:, 1] + pay[:, 3])
+        want_s, want_i = jax.lax.top_k(adj, 10)
+        np.testing.assert_array_equal(np.asarray(i), np.asarray(want_i))
+        np.testing.assert_allclose(np.asarray(s), np.asarray(want_s),
                                    rtol=1e-6, atol=1e-6)
 
 
-class TestExactBlockmaxFused:
-    """Exact-tier blockmax paths of ops/similarity.fused_search."""
+class TestKernelChoice:
+    def test_cpu_takes_xla_path(self):
+        from dewi.index import QuantizedIndex
 
-    def _arrays(self, cap=2048, d=32, nq=3, seed=7):
+        assert not kernel_runs_here()
+        rng = np.random.default_rng(0)
+        idx = QuantizedIndex(dim=32, int4_storage=True)
+        idx.add_batch([str(i) for i in range(600)],
+                      rng.normal(size=(600, 32)).astype(np.float32),
+                      np.abs(rng.normal(size=(600, 8))).astype(np.float32))
+        idx.build()
+        assert idx._kernel is False
+        assert idx._q_emb.shape[1] == 32        # unpacked once at build
+
+    def test_gpu_build_keeps_int4_packed(self, monkeypatch):
+        import dewi.index.quantized as qmod
+
+        monkeypatch.setattr(qmod, "kernel_runs_here", lambda: True)
+        rng = np.random.default_rng(1)
+        idx = qmod.QuantizedIndex(dim=32, int4_storage=True)
+        idx.add_batch([str(i) for i in range(600)],
+                      rng.normal(size=(600, 32)).astype(np.float32),
+                      np.abs(rng.normal(size=(600, 8))).astype(np.float32))
+        idx.build()
+        assert idx._kernel is True
+        assert idx._q_emb.shape[1] == 16        # packed nibbles stay packed
+        # blockmax off: no kernel, whatever the platform.
+        idx2 = qmod.QuantizedIndex(dim=32, blockmax_select=False)
+        idx2.add_batch(["a"] * 0, np.zeros((0, 32), np.float32),
+                       np.zeros((0, 8), np.float32))
+        assert idx2._kernel_ok() is False
+
+
+class TestExactTierXLA:
+    """The exact tier's XLA path (no kernel on this tier)."""
+
+    def _arrays(self, cap=2048, d=32, nq=5, seed=2):
         rng = np.random.default_rng(seed)
         emb = np.asarray(l2_normalize(
             jnp.asarray(rng.normal(size=(cap, d)).astype(np.float32))))
@@ -379,50 +248,46 @@ class TestExactBlockmaxFused:
                 np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
                 np.testing.assert_array_equal(np.asarray(s0), np.asarray(s1))
 
-    def test_fused_bmax_matches_two_pass_pallas(self):
-        """fused_bmax composes the bmax kernel + bf16 block re-score: same
-        bf16 stage math as the Pallas scores path, so indices must agree
-        and values must match to f32 accumulation-order noise."""
+    def test_bf16_store_runs_bf16_dot(self):
+        """A bf16 corpus is scored bf16 x bf16 with f32 accumulation: the
+        values equal an oracle on bf16-rounded operands."""
         emb, sqn, pay, q = self._arrays()
-        common = dict(k=10, normalize=True, interpret=True, pallas_block=256)
-        s0, i0 = fused_search(
-            emb, sqn, pay, q, jnp.int32(1900), jnp.float32(0.3),
-            jnp.float32(0.1), pallas_scores=True, blockmax_select=True,
-            **common)
-        s1, i1 = fused_search(
-            emb, sqn, pay, q, jnp.int32(1900), jnp.float32(0.3),
-            jnp.float32(0.1), pallas_scores=True, blockmax_select=True,
-            fused_bmax=True, **common)
-        np.testing.assert_array_equal(np.asarray(i0), np.asarray(i1))
-        np.testing.assert_allclose(np.asarray(s0), np.asarray(s1),
+        e16 = emb.astype(jnp.bfloat16)
+        s, i = fused_search(e16, sqn, pay, q, jnp.int32(2048),
+                            jnp.float32(0.3), jnp.float32(0.1), k=10)
+        qb = np.asarray(l2_normalize(q).astype(jnp.bfloat16), np.float64)
+        sim = qb @ np.asarray(e16.astype(jnp.float32),
+                                          np.float64).T
+        p = np.asarray(pay, np.float64)
+        adj = 0.7 * sim + 0.3 * p[:, 0] + 0.05 * (p[:, 1] + p[:, 3])
+        np.testing.assert_allclose(np.asarray(s), -np.sort(-adj, 1)[:, :10],
                                    rtol=1e-5, atol=1e-5)
-
-    def test_fused_bmax_l2(self):
-        emb, sqn, pay, q = self._arrays()
-        common = dict(k=10, normalize=False, interpret=True,
-                      pallas_block=256)
-        s0, i0 = fused_search(
-            emb, sqn, pay, q, jnp.int32(1900), jnp.float32(0.4),
-            jnp.float32(0.0), blockmax_select=True, **common)
-        s1, i1 = fused_search(
-            emb, sqn, pay, q, jnp.int32(1900), jnp.float32(0.4),
-            jnp.float32(0.0), pallas_scores=True, blockmax_select=True,
-            fused_bmax=True, **common)
-        # XLA f32 stage vs bf16 kernel stage: candidate tails may differ,
-        # but the exact guarantee holds within each scoring precision —
-        # demand >= 9/10 overlap and matching leaders.
-        for a, b in zip(np.asarray(i0), np.asarray(i1)):
-            assert len(set(a.tolist()) & set(b.tolist())) >= 9
-            assert a[0] == b[0]
 
     def test_blockmax_validity_mask(self):
         """Padded rows (>= n_valid) must never surface through blockmax."""
         emb, sqn, pay, q = self._arrays()
-        for fused in (False, True):
+        for dtype in (jnp.float32, jnp.bfloat16):
             s, i = fused_search(
-                emb, sqn, pay, q, jnp.int32(300), jnp.float32(0.3),
-                jnp.float32(0.1), k=10, normalize=True,
-                pallas_scores=fused, blockmax_select=True, fused_bmax=fused,
-                interpret=True, pallas_block=256)
+                emb.astype(dtype), sqn, pay, q, jnp.int32(300),
+                jnp.float32(0.3), jnp.float32(0.1), k=10, normalize=True,
+                blockmax_select=True)
             assert int(np.asarray(i).max()) < 300
             assert np.isfinite(np.asarray(s)).all()
+
+
+@pytest.mark.gpu
+def test_compiled_kernel_matches_xla_on_gpu():
+    """The compiled (not interpreted) kernel at 1M x 256 against the numpy
+    oracle (a host reference: XLA may narrow an f32 dot of bf16/int8
+    operands on the GPU)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs the GPU: the compiled Triton kernel has no CPU "
+                    "lowering (its arithmetic is checked in interpret mode "
+                    "above, and on the card by chip_smoke.py phase 5)")
+    x, mult, add = _corpus(cap=1 << 20, d=256)
+    for mode in ("bf16", "s8", "s4"):
+        e, e_int, q_in, q_or, qs = _kernel_inputs(mode, x, 32)
+        got = pallas_bmax(e, mult, add, q_in, qs, mode=mode)
+        want = _oracle(e_int, q_or, qs, mult, add)
+        np.testing.assert_allclose(np.asarray(got), want, rtol=1e-4,
+                                   atol=1e-4)

@@ -6,11 +6,11 @@ pipelines.py:87-160)."""
 import numpy as np
 import pytest
 
-from dewi_tpu.config import DewiConfig
-from dewi_tpu.parallel import make_mesh
-from dewi_tpu.parallel.signals import DataParallel
-from dewi_tpu.pipelines import DewiPipeline
-from dewi_tpu.signals import (
+from dewi.config import DewiConfig
+from dewi.parallel import make_mesh
+from dewi.parallel.signals import DataParallel
+from dewi.pipelines import DewiPipeline
+from dewi.signals import (
     CrossModalDependency,
     ImageEntropyEstimator,
     TextEntropyEstimator,
@@ -107,7 +107,7 @@ class TestShardedCrossModal:
 
 class TestShardedRedundancy:
     def test_max_offdiag_parity(self, mesh8, rng):
-        from dewi_tpu.signals.redundancy import (
+        from dewi.signals.redundancy import (
             max_offdiag_similarity,
             max_offdiag_similarity_sharded,
         )
@@ -120,7 +120,7 @@ class TestShardedRedundancy:
             np.testing.assert_allclose(b, a, rtol=1e-5, atol=1e-5)
 
     def test_estimator_uses_mesh(self, mesh8, rng):
-        from dewi_tpu.signals.redundancy import RedundancyEstimator
+        from dewi.signals.redundancy import RedundancyEstimator
 
         emb = rng.normal(size=(96, 16)).astype(np.float32)
         plain = RedundancyEstimator().score(emb)
@@ -142,9 +142,9 @@ def _tiny_config() -> DewiConfig:
 
 class TestShardedPipeline:
     def test_process_corpus_parity(self, mesh8, rng, monkeypatch):
-        import dewi_tpu.io.device_images as di
+        import dewi.io.device_images as di
 
-        from dewi_tpu.corpus import Corpus
+        from dewi.corpus import Corpus
 
         # Pin both runs to the host decode path: the single-device run
         # would otherwise use the DeviceImages on-device resize while the

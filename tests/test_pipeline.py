@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from dewi_tpu.config import DewiConfig
-from dewi_tpu.pipelines import Document, DewiPipeline, create_document
-from dewi_tpu.types import SIGNAL_FIELDS
+from dewi.config import DewiConfig
+from dewi.pipelines import Document, DewiPipeline, create_document
+from dewi.types import SIGNAL_FIELDS
 
 
 def tiny_config(**over) -> DewiConfig:
@@ -167,7 +167,7 @@ class TestComputeDewiScores:
             assert 0.0 <= d.dewi_score <= 1.0
 
     def test_matches_scalar_scorer(self, pipeline, docs):
-        from dewi_tpu.scorer import DewiScorer
+        from dewi.scorer import DewiScorer
 
         out = pipeline.compute_signals(list(docs))
         out = pipeline.compute_dewi_scores(out)
@@ -214,11 +214,14 @@ class TestIndexHandoff:
         out = pipeline.compute_dewi_scores(out)
         index = pipeline.build_index(out, backend="exact")
         assert len(index) == len(out)
-        q = pipeline.encode_query("the quick brown fox")
-        results = index.search(q, k=2)
+        # The query encoder is the docs' own text tower: a query with the
+        # duplicate docs' text lands on their embedding, so at eta=0 both
+        # rank above the unrelated ones whatever the (random) weights are.
+        q = pipeline.encode_query("the quick brown fox jumps over the dog")
+        results = index.search(q, k=2, eta=0.0)
         assert len(results) == 2
-        # The duplicate quick-fox docs should rank above the unrelated ones.
-        assert results[0][0] in ("d0", "d1")
+        assert {r[0] for r in results} == {"d0", "d1"}
+        assert results[0][1] > 0.999
 
     def test_build_index_empty_raises(self, pipeline):
         with pytest.raises(ValueError):
@@ -279,7 +282,7 @@ class TestProcessStream:
 
 class TestBuildIndexBackendKnobs:
     def test_ivf_knobs_forwarded(self):
-        from dewi_tpu.index.ivf import IVFIndex
+        from dewi.index.ivf import IVFIndex
 
         pipe = DewiPipeline(tiny_config(index={"ann": "ivf", "nlist": 7,
                                                "nprobe": 3}))
@@ -298,7 +301,7 @@ class TestBuildIndexBackendKnobs:
         import jax
         import jax.numpy as jnp
 
-        from dewi_tpu.models.registry import (
+        from dewi.models.registry import (
             clip_config, init_clip, init_lm, lm_config, save_params,
         )
 
@@ -345,7 +348,7 @@ class TestBuildIndexBackendKnobs:
         assert back.cross_modal.seed == 11
 
     def test_quantized_knob_forwarded(self):
-        from dewi_tpu.index.quantized import QuantizedIndex
+        from dewi.index.quantized import QuantizedIndex
 
         pipe = DewiPipeline(tiny_config(index={"ann": "quantized",
                                                "refine_factor": 4}))
@@ -363,8 +366,8 @@ class TestEmbeddingProvenance:
         """Regression: pre-embedded corpora must NOT claim CLIP provenance —
         search would rebuild an unrelated encoder and rank garbage."""
         import numpy as np
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.pipelines import DewiPipeline, create_document
+        from dewi.config import DewiConfig
+        from dewi.pipelines import DewiPipeline, create_document
 
         cfg = DewiConfig()
         pipe = DewiPipeline(cfg)
@@ -381,8 +384,8 @@ class TestEmbeddingProvenance:
 
     def test_pipeline_embeddings_record_cross_modal_source(self):
         import numpy as np
-        from dewi_tpu.config import DewiConfig
-        from dewi_tpu.pipelines import DewiPipeline, create_document
+        from dewi.config import DewiConfig
+        from dewi.pipelines import DewiPipeline, create_document
 
         cfg = DewiConfig()
         cfg.cross_modal.model = "tiny"
@@ -401,7 +404,7 @@ class TestProgressReporting:
     def test_meter_prints_rate_and_eta(self, capsys):
         import io
 
-        from dewi_tpu.utils.progress import ProgressMeter
+        from dewi.utils.progress import ProgressMeter
 
         buf = io.StringIO()
         m = ProgressMeter(100, "stage", enabled=True, interval=0.0,
@@ -419,7 +422,7 @@ class TestProgressReporting:
         # update (round-3 review: close()'s update(0) was throttled too).
         import io
 
-        from dewi_tpu.utils.progress import ProgressMeter
+        from dewi.utils.progress import ProgressMeter
 
         import time
 
@@ -436,7 +439,7 @@ class TestProgressReporting:
     def test_meter_disabled_is_silent(self):
         import io
 
-        from dewi_tpu.utils.progress import ProgressMeter
+        from dewi.utils.progress import ProgressMeter
 
         buf = io.StringIO()
         m = ProgressMeter(100, "stage", enabled=False, stream=buf)

@@ -7,8 +7,8 @@ import optax
 import pytest
 from jax.sharding import Mesh
 
-from dewi_tpu.models import init_lm, lm_config, token_nll
-from dewi_tpu.parallel.pp import (
+from dewi.models import init_lm, lm_config, token_nll
+from dewi.parallel.pp import (
     pipelined_lm_logits,
     pp_train_step,
     shard_stacked_params,

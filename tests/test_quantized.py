@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from dewi_tpu import DewiIndex
-from dewi_tpu.index import ExactIndex, QuantizedIndex
-from dewi_tpu.metrics import recall_matrix
-from dewi_tpu.ops.quantized import quantize_rows
+from dewi import DewiIndex
+from dewi.index import ExactIndex, QuantizedIndex
+from dewi.metrics import recall_matrix
+from dewi.ops.quantized import quantize_rows
 
 
 def make_corpus(n=512, d=64, seed=0):
@@ -113,7 +113,7 @@ class TestQuantizedIndex:
         whose capacity is a 128-multiple, its top-k ids must equal the
         m=capacity exact-selection path's (both refine in f32), in both
         spaces and with int8 queries."""
-        from dewi_tpu.ops.quantized import quantize_rows, quantized_search
+        from dewi.ops.quantized import quantize_rows, quantized_search
         import jax.numpy as jnp
 
         ids, emb, pay = corpus
@@ -163,7 +163,7 @@ class TestQuantizedIndex:
         gates hold, and quantized_search falls back automatically when
         they don't (misaligned capacity); above BLOCKMAX_REFINE_MAX_Q it
         switches to the score-gather refine instead of falling back."""
-        from dewi_tpu.config import IndexConfig
+        from dewi.config import IndexConfig
 
         assert QuantizedIndex(dim=16).blockmax_select is True
         assert IndexConfig().blockmax_select is True
@@ -173,7 +173,7 @@ class TestQuantizedIndex:
         through exact top_k (approx_max_k's coarse reduction measured
         0.987 recall on a 6k corpus at Q=100 — under the 0.99 gate —
         while exact selection is ~free at that size)."""
-        from dewi_tpu.ops.quantized import APPROX_SELECT_MIN_CAP
+        from dewi.ops.quantized import APPROX_SELECT_MIN_CAP
 
         ids, emb, pay = corpus
         exact = ExactIndex(dim=64)

@@ -6,7 +6,7 @@ import numpy as np
 import pytest
 from jax.sharding import Mesh
 
-from dewi_tpu.parallel.ring import ring_attention
+from dewi.parallel.ring import ring_attention
 
 
 def ref_attention(q, k, v, causal, pad=None):
@@ -83,8 +83,8 @@ class TestRingAttention:
 
 class TestRingLM:
     def test_logits_match_plain_forward(self):
-        from dewi_tpu.models import init_lm, lm_config
-        from dewi_tpu.parallel.ring import ring_lm_logits
+        from dewi.models import init_lm, lm_config
+        from dewi.parallel.ring import ring_lm_logits
 
         cfg = lm_config("tiny", max_len=32)
         cfg = type(cfg)(**{**cfg.__dict__, "dtype": "float32"})
@@ -99,9 +99,9 @@ class TestRingLM:
                                    rtol=2e-4, atol=2e-4)
 
     def test_padded_long_doc(self):
-        from dewi_tpu.models import init_lm, lm_config
-        from dewi_tpu.models.lm import token_nll
-        from dewi_tpu.parallel.ring import ring_lm_logits
+        from dewi.models import init_lm, lm_config
+        from dewi.models.lm import token_nll
+        from dewi.parallel.ring import ring_lm_logits
 
         cfg = lm_config("tiny", max_len=64)
         cfg = type(cfg)(**{**cfg.__dict__, "dtype": "float32"})
@@ -126,7 +126,7 @@ class TestRingLongDoc:
         """Docs past chip_len score exactly via ring (not windows)."""
         from jax.sharding import Mesh
 
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
                     ("data", "model"))
@@ -151,7 +151,7 @@ class TestRingLongDoc:
     def test_windows_fallback_past_positional_capacity(self):
         from jax.sharding import Mesh
 
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),
                     ("data", "model"))
@@ -166,7 +166,7 @@ class TestRingLongDoc:
         replicate the batch dim, not crash in device_put."""
         from jax.sharding import Mesh
 
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         mesh = Mesh(np.array(jax.devices()[:8]).reshape(2, 4),
                     ("data", "model"))
@@ -178,8 +178,8 @@ class TestRingLongDoc:
 
     def test_forward_cached_across_docs(self):
         """Same (cfg, mesh, axis) must reuse one jitted forward."""
-        from dewi_tpu.parallel.ring import _cached_lm_fwd
-        from dewi_tpu.models.registry import lm_config
+        from dewi.parallel.ring import _cached_lm_fwd
+        from dewi.models.registry import lm_config
         from jax.sharding import Mesh
 
         mesh = Mesh(np.array(jax.devices()[:4]).reshape(1, 4),

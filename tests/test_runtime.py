@@ -1,9 +1,12 @@
 """Runtime helper tests: device summary, batch sharding, default mesh."""
 
+from pathlib import Path
+
 import jax
 import numpy as np
+import pytest
 
-from dewi_tpu.parallel import (
+from dewi.parallel import (
     DATA_AXIS,
     default_mesh,
     device_summary,
@@ -17,6 +20,18 @@ class TestRuntime:
     def test_initialize_noop_single_process(self):
         initialize_runtime()  # must not raise single-process
         initialize_runtime()  # idempotent
+
+    def test_initialize_failure_raises(self, monkeypatch):
+        import dewi.parallel.runtime as rt
+
+        def fail(**kwargs):
+            raise RuntimeError("no coordinator")
+
+        monkeypatch.setattr(rt, "_initialized", False)
+        monkeypatch.setattr(jax.distributed, "initialize", fail)
+        with pytest.raises(RuntimeError, match="no coordinator"):
+            initialize_runtime("localhost:1", num_processes=2, process_id=0)
+        assert rt._initialized is False
 
     def test_device_summary_fields(self):
         s = device_summary()
@@ -56,18 +71,42 @@ class TestRuntime:
 
 
 class TestCompilationCache:
-    def test_enable_idempotent(self, tmp_path, monkeypatch):
-        import dewi_tpu.utils.compile_cache as cc
+    @staticmethod
+    def _record_config(monkeypatch):
+        # Record jax.config updates instead of applying them: a real cache
+        # directory would outlive this test in the worker process.
+        calls = {}
+        monkeypatch.setattr(jax.config, "update",
+                            lambda k, v: calls.__setitem__(k, v))
+        return calls
+
+    def test_enable_idempotent(self, monkeypatch):
+        import dewi.utils.compile_cache as cc
 
         monkeypatch.setattr(cc, "_enabled_dir", None)
-        monkeypatch.setenv("DEWI_COMPILE_CACHE_DIR", str(tmp_path / "xla"))
+        monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+        calls = self._record_config(monkeypatch)
         d1 = cc.enable_compilation_cache()
-        assert d1 == str(tmp_path / "xla")
+        # No env: the fixed, git-ignored directory inside the checkout.
+        assert d1 == str(cc.CACHE_DIR)
+        assert cc.CACHE_DIR.parent == Path(cc.__file__).resolve().parents[2]
+        assert calls["jax_compilation_cache_dir"] == d1
         # Second call is a no-op returning the same dir.
-        assert cc.enable_compilation_cache("/elsewhere") == d1
+        calls.clear()
+        assert cc.enable_compilation_cache() == d1
+        assert calls == {}
+
+    def test_env_dir_sets_no_directory(self, tmp_path, monkeypatch):
+        import dewi.utils.compile_cache as cc
+
+        monkeypatch.setattr(cc, "_enabled_dir", None)
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+        calls = self._record_config(monkeypatch)
+        assert cc.enable_compilation_cache() == str(tmp_path)
+        assert "jax_compilation_cache_dir" not in calls
 
     def test_disable_via_env(self, monkeypatch):
-        import dewi_tpu.utils.compile_cache as cc
+        import dewi.utils.compile_cache as cc
 
         monkeypatch.setattr(cc, "_enabled_dir", None)
         monkeypatch.setenv("DEWI_COMPILE_CACHE", "0")

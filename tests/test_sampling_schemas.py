@@ -5,7 +5,7 @@ import json
 import numpy as np
 import pytest
 
-from dewi_tpu.sampling import (
+from dewi.sampling import (
     dewi_tau_probabilities,
     sample_by_dewi,
     submodular_pick,
@@ -95,7 +95,7 @@ class TestSubmodularPick:
 
 class TestSchemas:
     def test_export_writes_files(self, tmp_path):
-        from dewi_tpu.schemas import export
+        from dewi.schemas import export
 
         paths = export(tmp_path)
         assert len(paths) == 4
@@ -104,7 +104,7 @@ class TestSchemas:
             assert "properties" in schema or "$defs" in schema
 
     def test_config_schema_has_sections(self, tmp_path):
-        from dewi_tpu.schemas import export
+        from dewi.schemas import export
 
         export(tmp_path)
         schema = json.loads((tmp_path / "dewi_config.schema.json").read_text())

@@ -8,8 +8,8 @@ numpy; the framework must match them bitwise-close.
 import numpy as np
 import pytest
 
-from dewi_tpu.scorer import DewiScorer, RobustStats, local_weights_from_surprisal
-from dewi_tpu.types import SIGNAL_FIELDS, Payload, Signals, Weights
+from dewi.scorer import DewiScorer, RobustStats, local_weights_from_surprisal
+from dewi.types import SIGNAL_FIELDS, Payload, Signals, Weights
 
 
 def golden_fit(rows):
@@ -104,7 +104,7 @@ class TestDewiScorer:
             assert batch_cond[i] == pytest.approx(scorer.score_conditional(sig), abs=1e-5)
 
     def test_fit_and_score_matrix_path(self, signal_rows):
-        from dewi_tpu.types import rows_to_matrix
+        from dewi.types import rows_to_matrix
 
         mat = rows_to_matrix(signal_rows, SIGNAL_FIELDS)
         scorer = DewiScorer()
@@ -158,7 +158,7 @@ class TestLocalWeights:
 
 def test_readme_quickstart_flow(rng):
     """The reference README quick start (README.md:65-135), now actually runnable."""
-    from dewi_tpu.index import DewiIndex
+    from dewi.index import DewiIndex
 
     ids = [f"doc{i}" for i in range(8)]
     embeddings = [rng.random(16).astype(np.float32) for _ in ids]
@@ -195,7 +195,7 @@ def test_readme_quickstart_flow(rng):
 class TestMaskedQuantileOp:
     def test_matches_np_quantile_interpolation(self, rng):
         import jax.numpy as jnp
-        from dewi_tpu.ops.robust import masked_mean_and_quantiles
+        from dewi.ops.robust import masked_mean_and_quantiles
 
         vals = rng.normal(size=(3, 40)).astype("float32")
         mask = np.zeros((3, 40), "float32")
@@ -217,7 +217,7 @@ class TestMaskedQuantileOp:
 
     def test_all_masked_row_is_zero(self):
         import jax.numpy as jnp
-        from dewi_tpu.ops.robust import masked_mean_and_quantiles
+        from dewi.ops.robust import masked_mean_and_quantiles
 
         mean, q = masked_mean_and_quantiles(
             jnp.ones((1, 8)), jnp.zeros((1, 8)), jnp.asarray([0.9])
@@ -230,8 +230,8 @@ def test_reference_quickstart_verbatim(rng):
     """The reference README's quick start (README.md:63-135) must run as a
     drop-in with only import paths changed — including the `Signals`
     introspection and in-place payload mutation it uses."""
-    from dewi_tpu.index import DewiIndex, Payload
-    from dewi_tpu.scorer import DewiScorer, Signals, Weights
+    from dewi.index import DewiIndex, Payload
+    from dewi.scorer import DewiScorer, Signals, Weights
 
     ids = ["doc1", "doc2", "doc3"]
     embeddings = [rng.random(768) for _ in range(3)]

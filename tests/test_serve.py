@@ -9,9 +9,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from dewi_tpu.index import ExactIndex
-from dewi_tpu.index.facade import DewiIndex
-from dewi_tpu.serve import MicroBatcher, SearchServer, _bucket
+from dewi.index import ExactIndex
+from dewi.index.facade import DewiIndex
+from dewi.serve import MicroBatcher, SearchServer, _bucket
 
 N, DIM = 200, 16
 
@@ -109,7 +109,7 @@ class TestMicroBatcher:
             mb.shutdown()
 
     def test_overload_sheds_with_429_error(self, index):
-        from dewi_tpu.serve import OverloadedError
+        from dewi.serve import OverloadedError
 
         mb = MicroBatcher(index, window_ms=50.0, max_batch=4, max_pending=8)
         # Pause the worker by filling the admission queue faster than the
@@ -250,10 +250,10 @@ class TestServeRetier:
         """retier_index (the function the CLI --backend flag calls)."""
         import numpy as np
 
-        from dewi_tpu.index import DewiIndex
-        from dewi_tpu.index.quantized import QuantizedIndex
-        from dewi_tpu.serve import retier_index
-        from dewi_tpu.types import Payload
+        from dewi.index import DewiIndex
+        from dewi.index.quantized import QuantizedIndex
+        from dewi.serve import retier_index
+        from dewi.types import Payload
 
         rng = np.random.default_rng(0)
         n, d = 64, 16
@@ -284,9 +284,9 @@ class TestSmallCorpusK:
         """Regression: k > corpus must not map pad-row indices to doc ids."""
         import numpy as np
 
-        from dewi_tpu.index import DewiIndex
-        from dewi_tpu.serve import MicroBatcher
-        from dewi_tpu.types import Payload
+        from dewi.index import DewiIndex
+        from dewi.serve import MicroBatcher
+        from dewi.types import Payload
 
         rng = np.random.default_rng(0)
         n, d = 5, 8

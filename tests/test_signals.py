@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dewi_tpu.signals import (
+from dewi.signals import (
     ByteTokenizer,
     CrossModalDependency,
     ImageEntropyEstimator,
@@ -13,7 +13,7 @@ from dewi_tpu.signals import (
     bucket_length,
     max_offdiag_similarity,
 )
-from dewi_tpu.signals.redundancy import minhash_signatures, simhash_bits
+from dewi.signals.redundancy import minhash_signatures, simhash_bits
 
 
 class TestTokenizer:
@@ -149,7 +149,7 @@ class TestCrossModal:
     def test_image_size_override(self):
         """config.cross_modal.image_size runs the vision tower at the
         corpus resolution (no 224px upscale tax for small corpora)."""
-        from dewi_tpu.signals.cross_modal import CrossModalDependency
+        from dewi.signals.cross_modal import CrossModalDependency
 
         est = CrossModalDependency(model_name="small", image_size=64,
                                    batch_size=4)
@@ -162,7 +162,7 @@ class TestCrossModal:
         np.testing.assert_allclose(np.linalg.norm(e, axis=1), 1.0, atol=1e-5)
 
     def test_image_size_not_patch_multiple_raises(self):
-        from dewi_tpu.signals.cross_modal import CrossModalDependency
+        from dewi.signals.cross_modal import CrossModalDependency
 
         with pytest.raises(ValueError, match="patch size"):
             CrossModalDependency(model_name="small", image_size=50)
@@ -170,10 +170,10 @@ class TestCrossModal:
     def test_image_size_conflicts_with_checkpoint(self, tmp_path):
         """An imported checkpoint's positional embeddings fix the
         resolution; an override must be a hard error, not silent drift."""
-        from dewi_tpu.signals.cross_modal import CrossModalDependency
-        from dewi_tpu.models.registry import clip_config, init_clip, \
+        from dewi.signals.cross_modal import CrossModalDependency
+        from dewi.models.registry import clip_config, init_clip, \
             save_params
-        from dewi_tpu.models.import_hf import write_sidecar_config
+        from dewi.models.import_hf import write_sidecar_config
 
         cfg = clip_config("tiny", vocab_size=258)
         _, params = init_clip(cfg, seed=0)
@@ -239,7 +239,7 @@ class TestRedundancy:
         assert sizes == [1, 2]
 
     def test_topk_density_duplicates_densest(self):
-        from dewi_tpu.signals.redundancy import topk_density
+        from dewi.signals.redundancy import topk_density
 
         rng = np.random.default_rng(3)
         emb = rng.normal(size=(24, 16)).astype(np.float32)
@@ -253,7 +253,7 @@ class TestRedundancy:
         assert d[4] > np.median(d) + 0.1
 
     def test_topk_density_matches_max_when_top1(self):
-        from dewi_tpu.signals.redundancy import topk_density
+        from dewi.signals.redundancy import topk_density
 
         rng = np.random.default_rng(4)
         emb = rng.normal(size=(15, 8)).astype(np.float32)
@@ -293,8 +293,8 @@ class TestBatchedImageNoise:
         return imgs
 
     def test_kernel_matches_scalar_components(self):
-        from dewi_tpu.ops.image_noise import batched_image_noise
-        from dewi_tpu.signals.noise import skin_fraction_risk
+        from dewi.ops.image_noise import batched_image_noise
+        from dewi.signals.noise import skin_fraction_risk
 
         est = NoiseEstimator()
         imgs = self._imgs()
@@ -402,7 +402,7 @@ class TestNoise:
     def test_nsfw_lite_skin_heuristic(self):
         """nsfw_filter='lite' does something measurable (VERDICT r1 item 7):
         a skin-toned frame scores higher risk than a blue one."""
-        from dewi_tpu.signals.noise import skin_fraction_risk
+        from dewi.signals.noise import skin_fraction_risk
 
         skin = np.broadcast_to(
             np.array([0.91, 0.65, 0.52], np.float32), (32, 32, 3)
@@ -446,7 +446,7 @@ class TestNoise:
 
 class TestPerceptualHash:
     def test_phash_invariant_to_small_noise(self):
-        from dewi_tpu.signals.redundancy import phash64, phash_similarity
+        from dewi.signals.redundancy import phash64, phash_similarity
 
         rng = np.random.default_rng(0)
         base = rng.random((64, 64, 3)).astype(np.float32)
@@ -459,7 +459,7 @@ class TestPerceptualHash:
         assert phash_similarity(h0, h2) < phash_similarity(h0, h1)
 
     def test_score_images_flags_duplicates(self):
-        from dewi_tpu.signals.redundancy import RedundancyEstimator
+        from dewi.signals.redundancy import RedundancyEstimator
 
         rng = np.random.default_rng(1)
         imgs = [rng.random((64, 64, 3)).astype(np.float32) for _ in range(5)]
@@ -471,7 +471,7 @@ class TestPerceptualHash:
         assert scores[1] < 1.0
 
     def test_pipeline_phash_mode(self):
-        from dewi_tpu.pipelines import Document, DewiPipeline
+        from dewi.pipelines import Document, DewiPipeline
         from tests.test_pipeline import tiny_config
 
         rng = np.random.default_rng(2)
@@ -594,7 +594,7 @@ class TestPackedTransfer:
         import jax.numpy as jnp
         import numpy as np
 
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         est = TextEntropyEstimator(model_name="tiny", batch_size=4)
         assert est._packed_ok
@@ -615,7 +615,7 @@ class TestPackedTransfer:
         import jax.numpy as jnp
         import numpy as np
 
-        from dewi_tpu.signals.cross_modal import CrossModalDependency
+        from dewi.signals.cross_modal import CrossModalDependency
 
         cm = CrossModalDependency(model_name="tiny", batch_size=4)
         assert cm._packed_ok
@@ -631,7 +631,7 @@ class TestPackedTransfer:
         np.testing.assert_allclose(e1, e2, rtol=1e-5, atol=1e-6)
 
     def test_encode_batch_u16_matches_encode_batch(self):
-        from dewi_tpu.signals.tokenizer import ByteTokenizer
+        from dewi.signals.tokenizer import ByteTokenizer
 
         tok = ByteTokenizer()
         texts = ["hello", "", "a longer text with more bytes", "é ü 漢"]

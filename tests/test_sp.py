@@ -5,10 +5,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from dewi_tpu.models import init_lm, lm_config, token_nll
-from dewi_tpu.parallel import make_mesh
-from dewi_tpu.parallel.sp import sequence_sharded_nll, shard_tokens
-from dewi_tpu.parallel.tp import shard_params
+from dewi.models import init_lm, lm_config, token_nll
+from dewi.parallel import make_mesh
+from dewi.parallel.sp import sequence_sharded_nll, shard_tokens
+from dewi.parallel.tp import shard_params
 
 
 @pytest.fixture(scope="module")

@@ -10,7 +10,7 @@ are all exercised with genuine Rust-tokenizer semantics.
 import numpy as np
 import pytest
 
-from dewi_tpu.signals.tokenizer import (
+from dewi.signals.tokenizer import (
     BOS_ID,
     PAD_ID,
     ByteTokenizer,
@@ -150,7 +150,7 @@ class TestBPEEstimator:
     def test_surprisal_with_real_bpe(self, bpe_tok):
         """End-to-end: BPE ids through the packed LM scoring path must
         match the scalar (unpacked int32+mask) path."""
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         est = TextEntropyEstimator(
             model_name="tiny", batch_size=4, max_length=32,
@@ -168,8 +168,8 @@ class TestBPEEstimator:
         """A checkpoint sidecar with a different vocab must refuse."""
         import json
 
-        from dewi_tpu.models.registry import init_lm, lm_config, save_params
-        from dewi_tpu.signals.text_entropy import TextEntropyEstimator
+        from dewi.models.registry import init_lm, lm_config, save_params
+        from dewi.signals.text_entropy import TextEntropyEstimator
 
         cfg = lm_config("tiny", vocab_size=258, max_len=32)
         _, params = init_lm(cfg, seed=0)

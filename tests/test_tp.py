@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 from jax.sharding import PartitionSpec as P
 
-from dewi_tpu.models import init_lm, lm_config, token_nll
-from dewi_tpu.parallel import MODEL_AXIS, make_mesh
-from dewi_tpu.parallel.tp import param_specs, shard_params
+from dewi.models import init_lm, lm_config, token_nll
+from dewi.parallel import MODEL_AXIS, make_mesh
+from dewi.parallel.tp import param_specs, shard_params
 
 
 @pytest.fixture(scope="module")

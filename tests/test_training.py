@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from dewi_tpu.models import init_clip, init_lm, init_mae, lm_config, mae_config, clip_config
-from dewi_tpu.training import train_clip, train_lm, train_mae
+from dewi.models import init_clip, init_lm, init_mae, lm_config, mae_config, clip_config
+from dewi.training import train_clip, train_lm, train_mae
 
 CORPUS = [
     "the cat sat on the mat",
@@ -24,7 +24,7 @@ class TestTrainLM:
         assert state.losses[-1] < state.losses[0] - 0.5
 
     def test_checkpoint_loads_into_estimator(self, tmp_path):
-        from dewi_tpu.signals import TextEntropyEstimator
+        from dewi.signals import TextEntropyEstimator
 
         cfg = lm_config("tiny", max_len=64)
         model, params = init_lm(cfg, seed=0)
@@ -84,9 +84,9 @@ class TestTrainCLIP:
 
 class TestMoETraining:
     def test_train_moe_lm_loss_decreases(self):
-        from dewi_tpu.models.moe import MoECausalLM
-        from dewi_tpu.models.registry import lm_config
-        from dewi_tpu.training.loops import train_moe_lm
+        from dewi.models.moe import MoECausalLM
+        from dewi.models.registry import lm_config
+        from dewi.training.loops import train_moe_lm
 
         import jax
 
